@@ -1,0 +1,624 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``temporal_latticenet_tpu_torch``) on
+one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, in order; any failure exits non-zero without the final line:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build the CUDA kernels K1-K4 from ``temporal_latticenet_tpu_torch/csrc``;
+3. each kernel against its plain PyTorch version on the card, at the shapes
+   the flagship main path gives it (inputs taken from a full-width lattice
+   build), with its device time, its memory bound, the plain version's
+   device time and, where one PyTorch call computes the same function, that
+   call's device time.  Device times are the summed durations of the
+   kernels a call launches, from ``torch.profiler``; ``wall_ms`` beside them
+   is the CUDA-event time of back-to-back calls, host launch overhead
+   included;
+4. the flagship 4-frame offline sequence forward at bench geometry (131,072
+   padded points per frame, capacities 49152/24576/12288, trims 36864 and
+   40960, sigma 0.6, seeded random weights), with the launch count of every
+   kernel during one forward and the median seconds per sequence;
+5. where the forward's time goes: its stages by host clock around
+   synchronised calls (lattice build, batched pointnet, per-frame network),
+   and under ``torch.profiler`` the device time per sequence of every kernel
+   name (the hand-written kernels among them), the launches per sequence
+   and the device's busy share of the wall time;
+6. the same forward on the card and on the CPU at a reduced geometry:
+   integer lattice structure equal, log-probabilities within bf16 tolerance;
+7. one JSON line with the kernels, the device line, and the result line
+   ``{"ok": true, "device": {...}}`` last.
+
+Exits non-zero when CUDA is unavailable.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
+
+FLAGSHIP_RT = dict(max_points=131072, capacity_level0=49152,
+                   capacity_decay=0.5, min_capacity=8192, sigma=0.6,
+                   trim_capacity_level0=36864, final_capacity_level0=40960)
+SMALL_RT = dict(max_points=4096, capacity_level0=16384, capacity_decay=0.5,
+                min_capacity=10240, sigma=0.6, trim_capacity_level0=12288,
+                final_capacity_level0=15360)
+FRAMES = 4
+KERNEL_ITERS = 20      # calls per kernel timing (plain versions: 1/10)
+FWD_ITERS = 20         # timed full-width forwards after the counted one
+PROFILE_FORWARDS = 3   # forwards under torch.profiler
+STAGE_REPS = 5         # synchronised calls per stage timing
+TOP_KERNELS = 25       # kernel names listed by device time
+# bf16 network held against itself on another device: both sides round the
+# same operands to bf16 and sum in float32 in different orders, and a
+# last-bit difference can flip a later bf16 rounding (the same tolerance
+# as the CPU test against the JAX package)
+LOGP_ATOL = 0.1
+ARGMAX_AGREE = 0.99
+
+KERNELS = {
+    "fused_simplex_pack": dict(
+        source="temporal_latticenet_tpu_torch/csrc/fused_simplex.cu",
+        replaces="temporal_latticenet_tpu/ops/pallas_simplex.py:44"),
+    "sorted_segment_scan": dict(
+        source="temporal_latticenet_tpu_torch/csrc/seg_scan.cu",
+        replaces="temporal_latticenet_tpu/ops/pallas_scan.py:281"),
+    "seg_sum_tails": dict(
+        source="temporal_latticenet_tpu_torch/csrc/seg_sum_tails.cu",
+        replaces="temporal_latticenet_tpu/ops/pallas_scan.py:338"),
+    "sorted_segment_max_u32": dict(
+        source="temporal_latticenet_tpu_torch/csrc/seg_max.cu",
+        replaces="temporal_latticenet_tpu/ops/pallas_scan.py:71"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def device_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def wall_ms(fn, iters: int, reps: int = 3) -> float:
+    """Median over ``reps`` of the mean time of ``iters`` back-to-back calls,
+    by CUDA events, after one warm-up call: host launch overhead included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_events(fn, calls: int):
+    """The device-side events (kernels, copies, fills) of ``calls`` calls of
+    ``fn`` under ``torch.profiler``, and the wall microseconds of the
+    window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return events, wall_us
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call: the summed durations of the device work it
+    launches, mean over ``iters`` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    events, _ = device_events(fn, iters)
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device work")
+    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_lengths(ids: torch.Tensor) -> torch.Tensor:
+    """Length of each row's run (for the summation-error tolerance)."""
+    _, inverse, counts = torch.unique_consecutive(
+        ids, return_inverse=True, return_counts=True)
+    return counts[inverse]
+
+
+def sum_tolerance(plain, plain_abs, run_len) -> torch.Tensor:
+    """Recursive float32 summation in any order: |error| <= (n - 1) u sum|x|
+    for a run of n rows (u = 2^-24); the plain version sums in float64 and
+    rounds once (u/2), and sum|x| is itself rounded: (n + 1) u sum|x|."""
+    n = run_len.to(torch.float64)[:, None]
+    return ((n + 1) * 2.0 ** -24) * plain_abs.double()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions at main-path shapes
+# ---------------------------------------------------------------------------
+
+def kernel_inputs(dev, data):
+    """Real main-path operands: the full-width lattice built on the card as
+    the forward builds it, and the final frame's trimmed links."""
+    from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.ops import permutohedral as pm
+    from temporal_latticenet_tpu_torch.ops import seq_lattice as sl
+    from temporal_latticenet_tpu_torch.train.engine import sequence_lattice
+
+    rt = RuntimeConfig(**FLAGSHIP_RT)
+    pos, val, mask = (torch.as_tensor(a, device=dev) for a in data)
+    lat, _, final_caps = sequence_lattice(ModelConfig(), rt, pos, val, mask)
+    final = sl.trim_sequence_lattice(lat, final_caps)
+    t, p = mask.shape
+    y = pm.scale_positions(pos.reshape(t * p, 3), rt.sigma).contiguous()
+    return dict(y=y, mask=mask.reshape(-1).contiguous(), spn=lat.sorted_pn,
+                links=final.links, p=p)
+
+
+def check_kernels(dev, inp):
+    from temporal_latticenet_tpu_torch.ops import fused_simplex as fs
+    from temporal_latticenet_tpu_torch.ops import seg_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    spn = inp["spn"]
+    q = spn.head_count.shape[0]
+    ids_vf = spn.head_count
+    results, cases = {}, []
+
+    def case(name, label, kernel, plain, library, nbytes, ops, compare):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err, ok, tol = compare(got, want)
+        bms, by = bound(nbytes, ops)
+        plain_iters = max(1, KERNEL_ITERS // 10)
+        rec = dict(kernel=name, case=label, max_abs_err=err, tolerance=tol,
+                   ok=bool(ok), ms=device_ms(kernel, KERNEL_ITERS),
+                   wall_ms=wall_ms(kernel, KERNEL_ITERS),
+                   plain_ms=device_ms(plain, plain_iters),
+                   plain_wall_ms=wall_ms(plain, plain_iters),
+                   library_ms=(device_ms(library, KERNEL_ITERS)
+                               if library else None),
+                   bound_ms=bms, bound_by=by)
+        log(f"[kernel] {json.dumps(rec)}")
+        cases.append(rec)
+        if not ok:
+            raise AssertionError(f"{name} {label} disagrees with its plain "
+                                 f"version: max_abs_err {err} ({tol})")
+
+    def exact(got, want):
+        same = torch.equal(got, want)
+        err = 0.0 if same else float((got.double() - want.double()).abs().max())
+        return err, same, "bit-equal"
+
+    def summed(ids, x, tails=None):
+        def compare(got, want):
+            if tails is None:
+                absum = ss.sorted_segment_scan_plain(ids, x.abs(), "sum")
+                run_len = run_lengths(ids)
+            else:
+                absum = ss.seg_sum_tails_plain(ids, x.abs(), tails)
+                run_len = run_lengths(ids)[tails.clamp(0, q - 1)]
+            d = (got.double() - want.double()).abs()
+            tol = sum_tolerance(want, absum, run_len)
+            return (float(d.max()), bool((d <= tol).all()),
+                    "|err| <= (n+1) 2^-24 sum|x| per run of n rows")
+        return compare
+
+    # K1: every point of the sequence
+    y, mask = inp["y"], inp["mask"]
+    n = y.shape[0]
+    case("fused_simplex_pack", f"N={n}",
+         lambda: fs.fused_simplex_pack(y, mask),
+         lambda: fs.fused_simplex_pack_plain(y, mask), None,
+         n * (12 + 1) + n * 4 * (8 + 4), n * 150,
+         lambda a, b: (max(exact(a[0], b[0])[0], exact(a[1], b[1])[0]),
+                       torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                       "keys and bary bit-equal"))
+
+    # K2 sum, single run: the union's int32 cumsums (ids all zero)
+    zeros = torch.zeros(q, dtype=torch.int32, device=dev)
+    heads = spn.head_vf.to(torch.int32)[:, None].contiguous()
+    case("sorted_segment_scan", f"sum int32 single run Q={q} C=1",
+         lambda: ss.sorted_segment_scan(zeros, heads, "sum"),
+         lambda: ss.sorted_segment_scan_plain(zeros, heads, "sum"),
+         lambda: torch.cumsum(heads, dim=0, dtype=torch.int32),
+         q * 4 * 3, q, exact)
+    # K2 first: birth propagation over sorted runs
+    frame = (spn.so // (inp["p"] * 4)).to(torch.int32)[:, None].contiguous()
+    case("sorted_segment_scan", f"first int32 Q={q} C=1",
+         lambda: ss.sorted_segment_scan(ids_vf, frame, "first"),
+         lambda: ss.sorted_segment_scan_plain(ids_vf, frame, "first"), None,
+         q * 4 * 3, q, exact)
+    # K2 sum float32: the coarsen splats of the final frame
+    for link in inp["links"]:
+        c = 64 if link is inp["links"][0] else 128
+        dst = link.sorted_dst
+        rows = torch.randn(dst.shape[0], c, generator=g, device=dev)
+        m = dst.shape[0]
+        case("sorted_segment_scan", f"sum float32 Q={m} C={c}",
+             lambda: ss.sorted_segment_scan(dst, rows, "sum"),
+             lambda: ss.sorted_segment_scan_plain(dst, rows, "sum"), None,
+             m * 4 + 2 * m * c * 4, m * c, summed(dst, rows))
+
+    # K3: per-(vertex, frame) position sums at the bucket tails
+    n_runs = int(ids_vf[-1]) + 1
+    live = spn.live.to(torch.float32)[:, None]
+    x4 = torch.cat([spn.rel * live, live], dim=1).contiguous()
+    tails = spn.tailpos.reshape(-1).contiguous()
+    b = tails.shape[0]
+    # the rows the function must read: those of runs that end at a tail
+    run_ids, run_len = torch.unique_consecutive(ids_vf, return_counts=True)
+    covered = int(run_len[torch.isin(run_ids, ids_vf[tails])].sum())
+    case("seg_sum_tails", f"Q={q} C=4 tails={b}",
+         lambda: ss.seg_sum_tails(ids_vf, x4, tails),
+         lambda: ss.seg_sum_tails_plain(ids_vf, x4, tails),
+         lambda: torch.zeros(n_runs, 4, device=dev).index_add_(
+             0, ids_vf.long(), x4),
+         covered * (4 + 16) + b * 8 + b * 16, covered * 4,
+         summed(ids_vf, x4, tails))
+
+    # K4: the batched pointnet's packed (bf16 | u16 bary) running max
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (q, 64), generator=g,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    flipped = bits ^ torch.tensor(-2 ** 31, dtype=torch.int32, device=dev)
+    idx64 = ids_vf.long()[:, None].expand(q, 64)
+    case("sorted_segment_max_u32", f"Q={q} C=64",
+         lambda: ss.sorted_segment_max_u32(ids_vf, bits),
+         lambda: ss.sorted_segment_max_u32_plain(ids_vf, bits),
+         lambda: torch.full((n_runs, 64), -2 ** 31, dtype=torch.int32,
+                            device=dev).scatter_reduce_(
+             0, idx64, flipped, "amax"),
+         q * 4 + 2 * q * 64 * 4, q * 64, exact)
+
+    # one entry per kernel: the times of its first case above, the largest
+    # error over all of its cases, and the cases themselves
+    for name in KERNELS:
+        mine = [c for c in cases if c["kernel"] == name]
+        results[name] = dict(mine[0], cases=mine,
+                             max_abs_err=max(c["max_abs_err"] for c in mine))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the flagship forward
+# ---------------------------------------------------------------------------
+
+def lidar(p: int, seed: int = 0):
+    from temporal_latticenet_tpu_torch.data.lidar_like import lidar_sequence
+    pos, val, _, mask = lidar_sequence(np.random.default_rng(seed),
+                                       frames=FRAMES, max_points=p,
+                                       n_az=p // 64)
+    return pos, val, mask
+
+
+def make_forward(rt_kw, device, state_dict=None):
+    from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
+    from temporal_latticenet_tpu_torch.train.engine import make_sequence_forward
+
+    cfg, rt = ModelConfig(), RuntimeConfig(**rt_kw)
+    model = LNNSeq(cfg, rt, device=device, seed=0)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    model.eval()
+    return model, make_sequence_forward(model, cfg, rt), rt
+
+
+def check_output(logp, aux, rt, mask_last):
+    logp = logp.float()
+    valid = torch.as_tensor(mask_last, device=logp.device)
+    lp = logp[valid]
+    if not bool(torch.isfinite(lp).all()):
+        raise AssertionError("non-finite log-probabilities")
+    row_sum = lp.exp().sum(-1)
+    if float((row_sum - 1).abs().max()) > 1e-3:
+        raise AssertionError("log-probabilities do not normalise")
+    caps = torch.tensor(rt.capacities(2))
+    occ = aux["occupancy"].cpu()
+    if not bool((occ < caps).all()):
+        raise AssertionError(f"occupancy {occ.tolist()} reaches the caps "
+                             f"{caps.tolist()}")
+    if bool(aux["trim_overflow"]):
+        raise AssertionError("trim overflow")
+    return occ.tolist()
+
+
+def flagship_forward(dev, data, fwd, rt):
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    pos, val, mask = data
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    logp, _, aux = fwd(pos, val, mask)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    occ = check_output(logp, aux, rt, mask[-1])
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+    secs = []
+    for _ in range(FWD_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(pos, val, mask)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    s = statistics.median(secs)
+    pts = FRAMES * float(mask.sum(1).mean())
+    return dict(launches=launches, occupancy=occ, seconds_per_seq=s,
+                seconds_all=secs, points_per_s=pts / s,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _timed(fn):
+    out, secs = None, []
+    for _ in range(STAGE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, statistics.median(secs)
+
+
+def _busy_share(events, wall_us):
+    """The union of the events' intervals over the wall time."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / wall_us
+
+
+def hand_written(kernel_name: str):
+    """Which of K1-K4 a device kernel name belongs to, or None.  K2 and K4
+    share the scan templates of ``seg_scan.cuh``; K4 is mode 4."""
+    if "simplex_kernel" in kernel_name:
+        return "fused_simplex_pack"
+    if "seg_sum_tails_kernel" in kernel_name:
+        return "seg_sum_tails"
+    m = re.search(r"seg_scan_(?:local|fixup)<[^>]*?(\d+)>", kernel_name)
+    if m:
+        return ("sorted_segment_max_u32" if m.group(1) == "4"
+                else "sorted_segment_scan")
+    return None
+
+
+def profile_forward(dev, data, model, fwd, rt):
+    from temporal_latticenet_tpu_torch.config import ModelConfig
+    from temporal_latticenet_tpu_torch.train.engine import sequence_lattice
+
+    pos, val, mask = data
+    pos_d, val_d, mask_d = (torch.as_tensor(a, device=dev) for a in data)
+    with torch.no_grad():
+        _, total = _timed(lambda: fwd(pos, val, mask))
+        (lat, _, _), t_build = _timed(lambda: sequence_lattice(
+            ModelConfig(), rt, pos_d, val_d, mask_d))
+        _, t_pn = _timed(lambda: model.reduce_pointnet(lat, val_d))
+    stages = dict(forward_s=total, lattice_build_s=t_build, pointnet_s=t_pn,
+                  network_frames_s=total - t_build - t_pn)
+
+    events, wall_us = device_events(lambda: fwd(pos, val, mask),
+                                    PROFILE_FORWARDS)
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device work")
+    by_name, mine = {}, {}
+    for e in events:
+        us = e.time_range.elapsed_us()
+        d = by_name.setdefault(e.name, [0.0, 0])
+        d[0] += us
+        d[1] += 1
+        k = hand_written(e.name)
+        if k:
+            m = mine.setdefault(k, [0.0, 0])
+            m[0] += us
+            m[1] += 1
+    n = PROFILE_FORWARDS
+    dev_us = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
+    return dict(
+        stages=stages, profiled_forwards=n,
+        wall_ms_per_seq=wall_us / n / 1e3,
+        device_ms_per_seq=dev_us / n / 1e3,
+        device_launches_per_seq=len(events) / n,
+        device_busy_share=_busy_share(events, wall_us),
+        hand_written={k: dict(device_ms_per_seq=v[0] / n / 1e3,
+                              device_launches_per_seq=v[1] / n)
+                      for k, v in mine.items()},
+        top_kernels=[dict(name=k[:120], ms_per_seq=v[0] / n / 1e3,
+                          share_of_device=v[0] / dev_us,
+                          calls_per_seq=v[1] / n) for k, v in top])
+
+
+def _structure_diff(a, b, prefix=""):
+    """Names of integer/bool fields that differ, and the largest float
+    difference, between two lattices (dataclasses of tensors)."""
+    bad, fmax = [], 0.0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        name = prefix + f.name
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                bad.append(name)
+        elif dataclasses.is_dataclass(x):
+            sub_bad, sub_max = _structure_diff(x, y, name + ".")
+            bad += sub_bad
+            fmax = max(fmax, sub_max)
+        elif isinstance(x, tuple):
+            for i, (u, v) in enumerate(zip(x, y)):
+                sub_bad, sub_max = _structure_diff(u, v, f"{name}{i}.")
+                bad += sub_bad
+                fmax = max(fmax, sub_max)
+        elif x.dtype.is_floating_point:
+            fmax = max(fmax, float((x.float().cpu() - y.float().cpu())
+                                   .abs().max()) if x.numel() else 0.0)
+        elif not torch.equal(x.cpu(), y.cpu()):
+            bad.append(name)
+    return bad, fmax
+
+
+def card_vs_cpu(dev):
+    from temporal_latticenet_tpu_torch.ops import seq_lattice as sl
+
+    data = lidar(SMALL_RT["max_points"])
+    cpu_model, cpu_fwd, rt = make_forward(SMALL_RT, "cpu")
+    _, dev_fwd, _ = make_forward(SMALL_RT, dev, cpu_model.state_dict())
+    lats = [sl.build_sequence_lattice(
+        torch.as_tensor(data[0], device=d), torch.as_tensor(data[2], device=d),
+        rt.sigma, rt.capacities(2), 2,
+        pn_values=torch.as_tensor(data[1], device=d), want_row_rel=True)
+        for d in ("cpu", dev)]
+    bad, float_max = _structure_diff(*lats)
+    if bad:
+        raise AssertionError(f"lattice fields differ card vs CPU: {bad}")
+    lp_cpu, _, aux_c = cpu_fwd(*data)
+    lp_dev, _, aux_d = dev_fwd(*data)
+    check_output(lp_dev, aux_d, rt, data[2][-1])
+    valid = torch.as_tensor(data[2][-1])
+    a, b = lp_cpu[valid], lp_dev.cpu()[valid]
+    d = float((a - b).abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    if not torch.equal(aux_c["point_vertex"], aux_d["point_vertex"].cpu()):
+        raise AssertionError("point_vertex differs card vs CPU")
+    if d > LOGP_ATOL or agree < ARGMAX_AGREE:
+        raise AssertionError(f"log-probabilities differ card vs CPU: max "
+                             f"{d}, argmax agreement {agree}")
+    return dict(points=SMALL_RT["max_points"], lattice_float_max_diff=float_max,
+                logp_max_abs_diff=d, argmax_agreement=agree,
+                logp_atol=LOGP_ATOL)
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write every phase's result to this JSON file")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; this script needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda")
+    report, failed = {}, []
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        log(f"== {name}")
+        try:
+            out = fn()
+            report[name] = out
+            log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")
+            return out
+        except Exception as e:  # a phase's failure fails the run, at the end
+            failed.append(name)
+            report[name] = {"error": f"{type(e).__name__}: {e}"}
+            log(f"[{name}] FAILED: {type(e).__name__}: {e}")
+            return None
+
+    dline = phase("device", device_line)
+    if dline:
+        log(dline)
+    built = phase("build", _cuda.build)
+    if built:
+        log(f"[build] {built['seconds']:.2f} s for {len(built['built'])} "
+            f"libraries")
+    data = lidar(FLAGSHIP_RT["max_points"])
+    kernels = None
+    if built:
+        kernels = phase("kernels", lambda: check_kernels(
+            dev, kernel_inputs(dev, data)))
+        model, fwd_fn, rt = make_forward(FLAGSHIP_RT, dev)
+        fwd = phase("forward", lambda: flagship_forward(dev, data, fwd_fn,
+                                                        rt))
+        if fwd:
+            log(f"[forward] {fwd['seconds_per_seq']:.4f} s/seq, "
+                f"{fwd['points_per_s']:.0f} points/s on {dline}; "
+                f"launches {fwd['launches']}")
+        prof = phase("profile", lambda: profile_forward(dev, data, model,
+                                                        fwd_fn, rt))
+        if prof:
+            log(f"[profile] {json.dumps(prof['stages'])}; "
+                f"{prof['device_ms_per_seq']:.2f} device ms and "
+                f"{prof['device_launches_per_seq']:.0f} launches per seq, "
+                f"device busy {prof['device_busy_share']:.3f}; "
+                f"hand-written {json.dumps(prof['hand_written'])}")
+        phase("card_vs_cpu", lambda: card_vs_cpu(dev))
+
+    launches = (report.get("forward") or {}).get("launches") or {}
+    on_path = (report.get("profile") or {}).get("hand_written") or {}
+    line = []
+    for name, meta in KERNELS.items():
+        k = (kernels or {}).get(name) or {}
+        line.append(dict(
+            name=name, route="cuda", source=meta["source"],
+            replaces=meta["replaces"], launches=launches.get(name, 0),
+            max_abs_err=k.get("max_abs_err"), ms=k.get("ms"),
+            plain_ms=k.get("plain_ms"), bound_ms=k.get("bound_ms"),
+            bound_by=k.get("bound_by"), library_ms=k.get("library_ms"),
+            wall_ms=k.get("wall_ms"), case=k.get("case"),
+            main_path_device_ms_per_seq=(on_path.get(name) or {}).get(
+                "device_ms_per_seq"),
+            cases=k.get("cases")))
+    report["device_line"] = dline
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(report, fh, indent=1)
+    if failed:
+        print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        return 1
+    log(json.dumps({"kernels": line}))
+    log(dline)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

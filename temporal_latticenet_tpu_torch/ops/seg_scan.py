@@ -1,0 +1,226 @@
+"""Kernels K2-K4: segmented scans over contiguous runs of sorted rows.
+
+Runs are given by nondecreasing run ids (``head_count``): rows with equal
+ids form one run.  Each public function launches its CUDA kernel for CUDA
+tensors and uses its plain PyTorch version (the ``*_plain`` function beside
+it) for CPU tensors; there is no other path.
+
+* K2 :func:`sorted_segment_scan` (``csrc/seg_scan.cu``) replaces the Pallas
+  kernel ``ops/pallas_scan.py:_seg_scan_kernel_lanes`` (wrapper
+  ``sorted_segment_scan``): inclusive segmented ``sum`` (float32 or int32),
+  ``max`` (int32) or ``first`` (the run head's value copied forward).
+* K3 :func:`seg_sum_tails` (``csrc/seg_sum_tails.cu``) replaces
+  ``_seg_scan_kernel_laneonly`` as composed by ``seg_sum_tails``: exact
+  per-run totals at the given tail rows.
+* K4 :func:`sorted_segment_max_u32` (``csrc/seg_max.cu``) replaces
+  ``_seg_max_kernel`` (wrappers ``sorted_segment_max_i32``/``_u32``): the
+  inclusive segmented running max of uint32 bits held in int32.  The TPU
+  kernel's ``max_window`` is a VMEM workaround; the port always computes
+  the full window (callers read the tails, which are bit-equal).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+INT_MIN = -0x80000000
+_THREADS = 256
+_ROWS_PER_THREAD = 4
+
+_MODES = {"sum_f32": 0, "sum_i32": 1, "max_i32": 2, "first": 3, "max_u32": 4}
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _head_positions(head_count: torch.Tensor) -> torch.Tensor:
+    """(Q,) int64 position of each row's run head."""
+    q = head_count.shape[0]
+    new = torch.ones(q, dtype=torch.bool, device=head_count.device)
+    new[1:] = head_count[1:] != head_count[:-1]
+    pos = torch.arange(q, device=head_count.device)
+    return torch.cummax(torch.where(new, pos, torch.zeros_like(pos)),
+                        dim=0).values
+
+
+def _run_sums_at(head_count, x, rows):
+    """Exact-as-possible run sums from the run head to ``rows``: a float64
+    (int64 for integers) prefix sum differenced at the run heads."""
+    acc_t = torch.float64 if x.dtype.is_floating_point else torch.int64
+    acc = torch.cumsum(x.to(acc_t), dim=0)
+    hp = _head_positions(head_count)[rows]
+    base = acc[(hp - 1).clamp(min=0)]
+    base = torch.where((hp > 0)[:, None], base, torch.zeros_like(base))
+    return (acc[rows] - base).to(x.dtype)
+
+
+def _max_scan(head_count, x):
+    """Hillis-Steele inclusive segmented max (log2(Q) passes)."""
+    out = x
+    q = x.shape[0]
+    s = 1
+    while s < q:
+        same = (head_count[s:] == head_count[:-s])[:, None]
+        upd = torch.where(same, torch.maximum(out[s:], out[:-s]), out[s:])
+        out = torch.cat([out[:s], upd], dim=0)
+        s *= 2
+    return out
+
+
+def sorted_segment_scan_plain(head_count, x, mode):
+    if mode == "first":
+        return x[_head_positions(head_count)]
+    if mode == "sum":
+        rows = torch.arange(x.shape[0], device=x.device)
+        return _run_sums_at(head_count, x, rows)
+    if mode == "max":
+        return _max_scan(head_count, x)
+    raise ValueError(mode)
+
+
+def seg_sum_tails_plain(head_count, x, tails):
+    q = x.shape[0]
+    ok = (tails >= 0) & (tails < q)
+    t = tails.clamp(0, max(q - 1, 0))
+    out = _run_sums_at(head_count, x, t)
+    return torch.where(ok[:, None], out, torch.zeros_like(out))
+
+
+def sorted_segment_max_u32_plain(head_count, x):
+    """uint32 order via the sign flip: x ^ 0x80000000 orders as int32."""
+    flip = torch.tensor(INT_MIN, dtype=torch.int32, device=x.device)
+    return _max_scan(head_count, x ^ flip) ^ flip
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+def _check(head_count, x, dtypes, what):
+    if x.dim() != 2:
+        raise ValueError(f"{what}: x must be (Q, C), got {tuple(x.shape)}")
+    if head_count.shape != (x.shape[0],) or head_count.dtype != torch.int32:
+        raise ValueError(f"{what}: head_count must be (Q,) int32")
+    if x.dtype not in dtypes:
+        raise ValueError(f"{what}: unsupported dtype {x.dtype}")
+    if head_count.device != x.device:
+        raise ValueError(f"{what}: tensors on different devices")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.is_cuda and not (x.is_contiguous() and head_count.is_contiguous()):
+        raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def _scan_cuda(lib, prefix, ids, x, mode_code):
+    """Block-local scan, recursive scan of the block carries, fix-up."""
+    q, c = x.shape
+    out = torch.empty_like(x)
+    if q == 0 or c == 0:
+        return out
+    cb = min(1 << (c - 1).bit_length(), _THREADS)
+    rpb = (_THREADS // cb) * _ROWS_PER_THREAD
+    nb = -(-q // rpb)
+    blk_val = torch.empty((nb, c), dtype=x.dtype, device=x.device)
+    blk_id = torch.empty((nb,), dtype=torch.int32, device=x.device)
+    local = _cuda.function(lib, prefix + "_local",
+                           [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
+                            _cuda.I64, _cuda.I32, _cuda.I32, _cuda.I32,
+                            _cuda.P])
+    err = local(ids.data_ptr(), x.data_ptr(), out.data_ptr(),
+                blk_val.data_ptr(), blk_id.data_ptr(), q, c, cb, mode_code,
+                _cuda.stream_ptr())
+    _cuda.check(lib, err, prefix + "_local")
+    if nb > 1:
+        blk_scan = _scan_cuda(lib, prefix, blk_id, blk_val, mode_code)
+        fixup = _cuda.function(lib, prefix + "_fixup",
+                               [_cuda.P, _cuda.P, _cuda.P, _cuda.P,
+                                _cuda.I64, _cuda.I32, _cuda.I64, _cuda.I32,
+                                _cuda.P])
+        err = fixup(ids.data_ptr(), out.data_ptr(), blk_scan.data_ptr(),
+                    blk_id.data_ptr(), q, c, rpb, mode_code,
+                    _cuda.stream_ptr())
+        _cuda.check(lib, err, prefix + "_fixup")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public wrappers
+# ---------------------------------------------------------------------------
+
+def sorted_segment_scan(head_count: torch.Tensor, x: torch.Tensor,
+                        mode: str) -> torch.Tensor:
+    """K2: inclusive segmented scan over contiguous runs.
+
+    Args:
+      head_count: (Q,) int32 nondecreasing run ids.
+      x: (Q, C); float32 or int32 for ``sum``, int32 for ``max``, any 32-bit
+        type for ``first``.
+    Returns (Q, C) of x's dtype.
+    """
+    if mode == "sum":
+        dtypes = (torch.float32, torch.int32)
+    elif mode == "max":
+        dtypes = (torch.int32,)
+    elif mode == "first":
+        dtypes = (torch.float32, torch.int32)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    _check(head_count, x, dtypes, "sorted_segment_scan")
+    if x.device.type == "cpu":
+        return sorted_segment_scan_plain(head_count, x, mode)
+    code = _MODES["first"] if mode == "first" else _MODES[
+        f"{mode}_{'f32' if x.dtype == torch.float32 else 'i32'}"]
+    out = _scan_cuda("seg_scan", "tln_seg_scan", head_count, x, code)
+    _cuda.LAUNCHES["sorted_segment_scan"] += 1
+    return out
+
+
+def seg_sum_tails(head_count: torch.Tensor, x: torch.Tensor,
+                  tails: torch.Tensor) -> torch.Tensor:
+    """K3: per-run totals of ``x`` at the ``tails`` row positions.
+
+    Args:
+      head_count: (Q,) int32 nondecreasing run ids.
+      x: (Q, C) float32.
+      tails: (B,) int64 row positions; each result is the sum of x from its
+        run's head to the tail row (positions outside [0, Q) give 0).
+    Returns (B, C) float32.
+    """
+    _check(head_count, x, (torch.float32,), "seg_sum_tails")
+    if tails.dim() != 1 or tails.dtype != torch.int64 \
+            or tails.device != x.device:
+        raise ValueError("seg_sum_tails: tails must be (B,) int64 on x's "
+                         "device")
+    if x.device.type == "cpu":
+        return seg_sum_tails_plain(head_count, x, tails)
+    if not tails.is_contiguous():
+        raise ValueError("seg_sum_tails: tails must be contiguous")
+    q, c = x.shape
+    b = tails.shape[0]
+    out = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    if b == 0 or c == 0:
+        return out
+    fn = _cuda.function("seg_sum_tails", "tln_seg_sum_tails",
+                        [_cuda.P, _cuda.P, _cuda.P, _cuda.I64, _cuda.I32,
+                         _cuda.I64, _cuda.P, _cuda.P])
+    err = fn(head_count.data_ptr(), x.data_ptr(), tails.data_ptr(), q, c, b,
+             out.data_ptr(), _cuda.stream_ptr())
+    _cuda.check("seg_sum_tails", err, "seg_sum_tails")
+    _cuda.LAUNCHES["seg_sum_tails"] += 1
+    return out
+
+
+def sorted_segment_max_u32(head_count: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """K4: inclusive segmented running max of uint32 bit patterns held in an
+    int32 (Q, C) tensor (compared as unsigned)."""
+    _check(head_count, x, (torch.int32,), "sorted_segment_max_u32")
+    if x.device.type == "cpu":
+        return sorted_segment_max_u32_plain(head_count, x)
+    out = _scan_cuda("seg_max", "tln_seg_max", head_count, x,
+                     _MODES["max_u32"])
+    _cuda.LAUNCHES["sorted_segment_max_u32"] += 1
+    return out

@@ -1,0 +1,232 @@
+"""Kernels K1-K4 of the PyTorch port against the JAX package's Pallas
+kernels (run in interpret mode on the CPU, as tests/test_pallas_*.py do),
+plus the CUDA kernels against their plain versions on the card.
+
+Tolerances: integer outputs (keys, run ids, ``first``, ``max``, packed
+maxima) are bit-equal; float32 sums may differ only in summation order
+(the plain version sums in float64 and rounds once), so they are held to
+1e-4 relative to the magnitude of the running sums.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from temporal_latticenet_tpu.ops import pallas_scan as ps
+from temporal_latticenet_tpu.ops import permutohedral as jpm
+from temporal_latticenet_tpu.ops import segment as jseg
+from temporal_latticenet_tpu.ops.pallas_simplex import fused_simplex_pack as j_fused
+from temporal_latticenet_tpu_torch.ops import _cuda
+from temporal_latticenet_tpu_torch.ops import fused_simplex as fs
+from temporal_latticenet_tpu_torch.ops import seg_scan as ss
+
+
+def _runs(rng, q, p=0.05):
+    heads = rng.random(q) < p
+    heads[0] = True
+    return np.cumsum(heads).astype(np.int32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# K1 fused_simplex_pack
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sigma", [0.6, 1.7])
+def test_k1_plain_matches_pallas_bit_exact(sigma):
+    rng = np.random.default_rng(0)
+    n = 1500
+    pos = (rng.standard_normal((n, 3)) * 25).astype(np.float32)
+    pos[:10] = rng.integers(-8, 8, (10, 3))          # lattice-point ties
+    pos[10] = [1e5, 1e5, 1e5]                        # out of packed range
+    mask = rng.random(n) < 0.9
+    jp, jb = j_fused(jnp.asarray(pos), jnp.asarray(mask), sigma, rows=8,
+                     interpret=True)
+    # same pre-scaled y on both sides (the sigma division stays outside)
+    y = np.asarray(jpm.scale_positions(jnp.asarray(pos), sigma))
+    tp, tb = fs.fused_simplex_pack(_t(y), _t(mask))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp).astype(np.int64))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+
+
+def test_k1_rejects_bad_input():
+    with pytest.raises(ValueError):
+        fs.fused_simplex_pack(torch.zeros(4, 2), torch.ones(4, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        fs.fused_simplex_pack(torch.zeros(4, 3), torch.ones(4))
+
+
+# ---------------------------------------------------------------------------
+# K2 sorted_segment_scan: every mode, dtype and C of the contract
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode,dtype", [("sum", np.float32), ("sum", np.int32),
+                                        ("max", np.int32),
+                                        ("first", np.float32),
+                                        ("first", np.int32)])
+@pytest.mark.parametrize("c", [1, 4, 64, 128])
+def test_k2_plain_matches_pallas(mode, dtype, c):
+    rng = np.random.default_rng(c)
+    q = 2048 if c <= 4 else 512
+    hc = _runs(rng, q)
+    if dtype == np.float32:
+        x = rng.standard_normal((q, c)).astype(dtype)
+    else:
+        x = rng.integers(-1000, 1000, (q, c)).astype(dtype)
+    want = np.asarray(ps.sorted_segment_scan(jnp.asarray(hc), jnp.asarray(x),
+                                             mode, rows=8, interpret=True))
+    got = ss.sorted_segment_scan(_t(hc), _t(x), mode).numpy()
+    assert got.dtype == x.dtype
+    if mode == "sum" and dtype == np.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_k2_single_run_cumsum_is_exact():
+    """All-zero run ids: the union's int32 cumsum, one run over all rows."""
+    rng = np.random.default_rng(3)
+    q = 5000
+    x = rng.integers(0, 3, (q, 1)).astype(np.int32)
+    got = ss.sorted_segment_scan(torch.zeros(q, dtype=torch.int32), _t(x),
+                                 "sum")
+    np.testing.assert_array_equal(got.numpy()[:, 0], np.cumsum(x[:, 0]))
+
+
+def test_k2_rejects_bad_input():
+    hc = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ss.sorted_segment_scan(hc, torch.zeros(8, 2), "max")      # f32 max
+    with pytest.raises(ValueError):
+        ss.sorted_segment_scan(hc.long(), torch.zeros(8, 2), "sum")
+    with pytest.raises(ValueError):
+        ss.sorted_segment_scan(hc, torch.zeros(8, 2), "mean")
+
+
+# ---------------------------------------------------------------------------
+# K3 seg_sum_tails
+# ---------------------------------------------------------------------------
+
+def test_k3_plain_matches_pallas_tails():
+    rng = np.random.default_rng(9)
+    q, c = 4096, 4
+    lens = []
+    while sum(lens) < q - 400:
+        lens.append(int(rng.choice([1, 2, 5, 31, 32, 33, 64, 200])))
+    lens.append(q - sum(lens))
+    heads = np.zeros(q, bool)
+    heads[np.cumsum([0] + lens[:-1])] = True
+    ids = np.cumsum(heads).astype(np.int32)
+    tails = np.concatenate([np.flatnonzero(heads)[1:] - 1, [q - 1]])
+    x = rng.standard_normal((q, c)).astype(np.float32)
+    want = np.asarray(ps.seg_sum_tails(jnp.asarray(ids), jnp.asarray(x),
+                                       jnp.asarray(tails), interpret=True))
+    got = ss.seg_sum_tails(_t(ids), _t(x), _t(tails.astype(np.int64)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    # integer-valued float32: exact regardless of summation order
+    xi = rng.integers(0, 100, (q, c)).astype(np.float32)
+    got = ss.seg_sum_tails(_t(ids), _t(xi), _t(tails.astype(np.int64)))
+    np.testing.assert_array_equal(
+        got.numpy(), np.stack([xi[ids == ids[t]].sum(0) for t in tails]))
+
+
+# ---------------------------------------------------------------------------
+# K4 sorted_segment_max_u32
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("c", [8, 64])
+def test_k4_plain_matches_pallas_full_window(c):
+    rng = np.random.default_rng(c)
+    q = 2048
+    hc = _runs(rng, q, 0.1)
+    x = rng.integers(0, 2**32, (q, c), dtype=np.uint32)
+    want = np.asarray(ps.sorted_segment_max_u32(jnp.asarray(hc),
+                                                jnp.asarray(x), tile=512,
+                                                interpret=True))
+    got = ss.sorted_segment_max_u32(_t(hc), _t(x.view(np.int32)))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_k4_tails_match_pallas_two_level():
+    """The port's full-window tails equal the JAX package's windowed
+    two-level tail max bit for bit (runs from 1 row to over a tile)."""
+    rng = np.random.default_rng(7)
+    q, chunk = 8192, 16
+    lens = []
+    while sum(lens) < q - 3000:
+        lens.append(int(rng.choice([1, 2, 3, 7, 15, 16, 17, 32, 100])))
+    lens += [2500, 16, 1]
+    lens.append(q - sum(lens))
+    heads = np.zeros(q, bool)
+    heads[np.cumsum([0] + lens[:-1])] = True
+    tails = np.concatenate([np.flatnonzero(heads)[1:] - 1, [q - 1]])
+    x = rng.integers(0, 2**32, (q, 8), dtype=np.uint32)
+    want = np.asarray(jseg._seg_max_tails_twolevel(
+        jnp.asarray(heads), jnp.asarray(x), jnp.asarray(tails), chunk=chunk,
+        interpret=True))
+    hc = np.cumsum(heads).astype(np.int32)
+    got = ss.sorted_segment_max_u32(_t(hc), _t(x.view(np.int32)))
+    np.testing.assert_array_equal(got.numpy()[tails].view(np.uint32), want)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against their plain versions (on the card only)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain(cuda_device):
+    g = torch.Generator().manual_seed(0)
+    dev = cuda_device
+    y = (torch.randn(70001, 3, generator=g) * 40).to(dev)
+    m = (torch.rand(70001, generator=g) < 0.9).to(dev)
+    before = _cuda.launch_counts()
+    pk, b = fs.fused_simplex_pack(y, m)
+    pk2, b2 = fs.fused_simplex_pack_plain(y, m)
+    assert torch.equal(pk, pk2) and torch.equal(b, b2)
+    q = 300007
+    hc = torch.cumsum((torch.rand(q, generator=g) < 0.1).int(), 0).int().to(dev)
+    for c, mode, dt in [(1, "sum", torch.int32), (1, "first", torch.int32),
+                        (64, "sum", torch.float32), (128, "sum", torch.float32),
+                        (4, "max", torch.int32), (4, "first", torch.float32)]:
+        x = (torch.randn(q, c, generator=g) if dt == torch.float32 else
+             torch.randint(-999, 999, (q, c), generator=g, dtype=dt)).to(dev)
+        got = ss.sorted_segment_scan(hc, x, mode)
+        want = ss.sorted_segment_scan_plain(hc, x, mode)
+        if dt == torch.float32 and mode == "sum":
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            assert torch.equal(got, want)
+    x = torch.randn(q, 4, generator=g).to(dev)
+    tails = torch.randint(0, q, (5000,), generator=g).to(dev)
+    torch.testing.assert_close(ss.seg_sum_tails(hc, x, tails),
+                               ss.seg_sum_tails_plain(hc, x, tails),
+                               rtol=1e-4, atol=1e-4)
+    xi = torch.randint(-2**31, 2**31 - 1, (q, 64), generator=g,
+                       dtype=torch.int64).to(torch.int32).to(dev)
+    assert torch.equal(ss.sorted_segment_max_u32(hc, xi),
+                       ss.sorted_segment_max_u32_plain(hc, xi))
+    after = _cuda.launch_counts()
+    assert after["fused_simplex_pack"] == before["fused_simplex_pack"] + 1
+    assert after["sorted_segment_scan"] == before["sorted_segment_scan"] + 6
+    assert after["seg_sum_tails"] == before["seg_sum_tails"] + 1
+    assert after["sorted_segment_max_u32"] == \
+        before["sorted_segment_max_u32"] + 1
+
+
+def test_cpu_path_does_not_count_launches():
+    before = _cuda.launch_counts()
+    ss.sorted_segment_scan(torch.zeros(16, dtype=torch.int32),
+                           torch.ones(16, 1, dtype=torch.int32), "sum")
+    fs.fused_simplex_pack(torch.zeros(4, 3), torch.ones(4, dtype=torch.bool))
+    assert _cuda.launch_counts() == before
