@@ -7,7 +7,7 @@ one NVIDIA GPU.
 Phases, in order; any failure exits non-zero without the final line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels K1-K4 from ``temporal_latticenet_tpu_torch/csrc``;
+2. build the CUDA kernels K1-K5 from ``temporal_latticenet_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the flagship main path gives it (inputs taken from a full-width lattice
    build), with its device time, its memory bound, the plain version's
@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero without the final line:
    call's device time.  Device times are the summed durations of the
    kernels a call launches, from ``torch.profiler``; ``wall_ms`` beside them
    is the CUDA-event time of back-to-back calls, host launch overhead
-   included;
+   included.  K2's float32 sums run at the coarsen splats' shapes and at
+   the finefy slices' backward shapes; the two-level tail max that K5 (the
+   windowed max) feeds must also equal K4's full-scan tails;
 4. the flagship 4-frame offline sequence forward at bench geometry (131,072
    padded points per frame, capacities 49152/24576/12288, trims 36864 and
    40960, sigma 0.6, seeded random weights), with the launch count of every
@@ -27,8 +29,22 @@ Phases, in order; any failure exits non-zero without the final line:
    and the device's busy share of the wall time;
 6. the same forward on the card and on the CPU at a reduced geometry:
    integer lattice structure equal, log-probabilities within bf16 tolerance;
-7. one JSON line with the kernels, the device line, and the result line
-   ``{"ok": true, "device": {...}}`` last.
+7. the forward on the packed route (``TLN_MAXSCAN_PACKED=1``, the JAX
+   package's switch: the pointnet max through K5 and K4): the reduced
+   pointnet tensor bit-equal to the default route's, the largest
+   log-probability difference, and the launches of every kernel;
+8. the flagship training step at full width on the packed route (BPTT
+   through the 4 frames with full remat, 0.5 Lovász + 0.5 NLL, AdamW with
+   amsgrad, lr 1e-3, weight decay 1e-3): one warm step and
+   ``TRAIN_STEPS`` timed steps on one batch, with seconds per step, peak
+   device memory, loss and gradient norms per step, the launches of every
+   kernel in one step, and under ``torch.profiler`` the device time per
+   step of every hand-written kernel and the device's busy share;
+9. the training step's gradients on the card and on the CPU at the reduced
+   geometry, within the bf16 tolerance of the CPU test against the JAX
+   package;
+10. one JSON line with the kernels, the device line, and the result line
+    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero when CUDA is unavailable.
 """
@@ -36,8 +52,11 @@ Exits non-zero when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -68,6 +87,17 @@ TOP_KERNELS = 25       # kernel names listed by device time
 # as the CPU test against the JAX package)
 LOGP_ATOL = 0.1
 ARGMAX_AGREE = 0.99
+TRAIN_STEPS = 6        # timed training steps after the warm one
+PROFILE_STEPS = 2      # training steps under torch.profiler
+# training step held against itself on the CPU: the tolerance of the CPU
+# test against the JAX package (tests/test_torch_train.py), for the same
+# reason as LOGP_ATOL, with operand gradients rounded to bf16 as well
+LOSS_ATOL = 1e-2
+GRAD_COSINE = 0.99
+NORM_RTOL = 0.02
+# parameters no forward reads (AFlow's conv weight, kept for the checkpoint
+# schema): their gradient is zero, in the JAX package too
+UNREAD_PARAMS = ("AFLOW.weight",)
 
 KERNELS = {
     "fused_simplex_pack": dict(
@@ -82,7 +112,29 @@ KERNELS = {
     "sorted_segment_max_u32": dict(
         source="temporal_latticenet_tpu_torch/csrc/seg_max.cu",
         replaces="temporal_latticenet_tpu/ops/pallas_scan.py:71"),
+    "sorted_segment_max_window": dict(
+        source="temporal_latticenet_tpu_torch/csrc/seg_max_window.cu",
+        replaces="temporal_latticenet_tpu/ops/pallas_scan.py:111"),
 }
+# the kernels the default-route forward launches (K5 only on the packed
+# route)
+FORWARD_KERNELS = ("fused_simplex_pack", "sorted_segment_scan",
+                   "seg_sum_tails", "sorted_segment_max_u32")
+
+
+@contextlib.contextmanager
+def packed_route():
+    """``TLN_MAXSCAN_PACKED=1`` for the calls inside: the pointnet max takes
+    the two-level route on K5 and K4."""
+    old = os.environ.get("TLN_MAXSCAN_PACKED")
+    os.environ["TLN_MAXSCAN_PACKED"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["TLN_MAXSCAN_PACKED"]
+        else:
+            os.environ["TLN_MAXSCAN_PACKED"] = old
 
 
 def log(*a):
@@ -192,6 +244,7 @@ def kernel_inputs(dev, data):
 def check_kernels(dev, inp):
     from temporal_latticenet_tpu_torch.ops import fused_simplex as fs
     from temporal_latticenet_tpu_torch.ops import seg_scan as ss
+    from temporal_latticenet_tpu_torch.ops import segment as tseg
 
     g = torch.Generator(device=dev).manual_seed(0)
     spn = inp["spn"]
@@ -263,13 +316,17 @@ def check_kernels(dev, inp):
          lambda: ss.sorted_segment_scan(ids_vf, frame, "first"),
          lambda: ss.sorted_segment_scan_plain(ids_vf, frame, "first"), None,
          q * 4 * 3, q, exact)
-    # K2 sum float32: the coarsen splats of the final frame
-    for link in inp["links"]:
-        c = 64 if link is inp["links"][0] else 128
+    # K2 sum float32 on the final frame's links: the coarsen splats (64
+    # channels over link 0, 128 over link 1) and the finefy slices'
+    # backward (128-channel cotangents over link 1, then link 0)
+    link0, link1 = inp["links"]
+    for use, link, c in (("coarsen splat", link0, 64),
+                         ("coarsen splat / slice backward", link1, 128),
+                         ("slice backward", link0, 128)):
         dst = link.sorted_dst
         rows = torch.randn(dst.shape[0], c, generator=g, device=dev)
         m = dst.shape[0]
-        case("sorted_segment_scan", f"sum float32 Q={m} C={c}",
+        case("sorted_segment_scan", f"{use}: sum float32 Q={m} C={c}",
              lambda: ss.sorted_segment_scan(dst, rows, "sum"),
              lambda: ss.sorted_segment_scan_plain(dst, rows, "sum"), None,
              m * 4 + 2 * m * c * 4, m * c, summed(dst, rows))
@@ -304,6 +361,35 @@ def check_kernels(dev, inp):
              0, idx64, flipped, "amax"),
          q * 4 + 2 * q * 64 * 4, q * 64, exact)
 
+    # K5: the packed route's windowed max on the same rows (window 8: every
+    # row covers its last 16 same-run rows), bit-equal to its plain version
+    # (which the CPU tests hold to the coverage contract against the Pallas
+    # kernel), then the two-level tail max it feeds, which must equal K4's
+    # full-scan tails bit for bit
+    window = tseg.CHUNK // 2
+    # comparisons this data needs: each row folds in min(its rank in its
+    # run, 2W - 1) earlier rows
+    rank = torch.arange(q, device=dev) - ss._head_positions(ids_vf)
+    folds = int(rank.clamp(max=2 * window - 1).sum()) * 64
+    case("sorted_segment_max_window", f"Q={q} C=64 window={window}",
+         lambda: ss.sorted_segment_max_window(ids_vf, bits, window),
+         lambda: ss.sorted_segment_max_window_plain(ids_vf, bits, window),
+         None, q * 4 + 2 * q * 64 * 4, folds, exact)
+    k4_tails = ss.sorted_segment_max_u32(ids_vf, bits)[tails]
+
+    def tails_equal(got, want):
+        err, same, _ = exact(got, want)
+        return (err, same and torch.equal(got, k4_tails),
+                "bit-equal to the plain full-run max and to K4's tails")
+    case("sorted_segment_max_window",
+         f"two-level tails (K5 + K4 summary) Q={q} C=64 tails={b}",
+         lambda: tseg._seg_max_tails_twolevel(ids_vf, bits, tails),
+         lambda: ss.sorted_segment_max_u32_plain(ids_vf, bits)[tails],
+         lambda: torch.full((n_runs, 64), -2 ** 31, dtype=torch.int32,
+                            device=dev).scatter_reduce_(
+             0, idx64, flipped, "amax"),
+         q * 4 + q * 64 * 4 + b * 8 + b * 64 * 4, q * 64, tails_equal)
+
     # one entry per kernel: the times of its first case above, the largest
     # error over all of its cases, and the cases themselves
     for name in KERNELS:
@@ -317,11 +403,16 @@ def check_kernels(dev, inp):
 # phases 4 and 5: the flagship forward
 # ---------------------------------------------------------------------------
 
-def lidar(p: int, seed: int = 0):
+def lidar_labelled(p: int, seed: int = 0):
+    """(positions, values, labels, mask) of a FRAMES-frame LiDAR-like
+    sequence."""
     from temporal_latticenet_tpu_torch.data.lidar_like import lidar_sequence
-    pos, val, _, mask = lidar_sequence(np.random.default_rng(seed),
-                                       frames=FRAMES, max_points=p,
-                                       n_az=p // 64)
+    return lidar_sequence(np.random.default_rng(seed), frames=FRAMES,
+                          max_points=p, n_az=p // 64)
+
+
+def lidar(p: int, seed: int = 0):
+    pos, val, _, mask = lidar_labelled(p, seed)
     return pos, val, mask
 
 
@@ -367,7 +458,7 @@ def flagship_forward(dev, data, fwd, rt):
     torch.cuda.synchronize()
     launches = _cuda.launch_counts()
     occ = check_output(logp, aux, rt, mask[-1])
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -413,10 +504,12 @@ def _busy_share(events, wall_us):
 
 
 def hand_written(kernel_name: str):
-    """Which of K1-K4 a device kernel name belongs to, or None.  K2 and K4
+    """Which of K1-K5 a device kernel name belongs to, or None.  K2 and K4
     share the scan templates of ``seg_scan.cuh``; K4 is mode 4."""
     if "simplex_kernel" in kernel_name:
         return "fused_simplex_pack"
+    if "seg_max_window_kernel" in kernel_name:
+        return "sorted_segment_max_window"
     if "seg_sum_tails_kernel" in kernel_name:
         return "seg_sum_tails"
     m = re.search(r"seg_scan_(?:local|fixup)<[^>]*?(\d+)>", kernel_name)
@@ -442,6 +535,14 @@ def profile_forward(dev, data, model, fwd, rt):
 
     events, wall_us = device_events(lambda: fwd(pos, val, mask),
                                     PROFILE_FORWARDS)
+    return dict(stages=stages, profiled_forwards=PROFILE_FORWARDS,
+                **device_summary(events, wall_us, PROFILE_FORWARDS, "seq"))
+
+
+def device_summary(events, wall_us, n: int, per: str) -> dict:
+    """Device time, launches and busy share per call (``per``: "seq" or
+    "step") of ``n`` profiled calls, by kernel name and for the
+    hand-written kernels."""
     if not events:
         raise RuntimeError("torch.profiler recorded no device work")
     by_name, mine = {}, {}
@@ -455,21 +556,19 @@ def profile_forward(dev, data, model, fwd, rt):
             m = mine.setdefault(k, [0.0, 0])
             m[0] += us
             m[1] += 1
-    n = PROFILE_FORWARDS
     dev_us = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
-    return dict(
-        stages=stages, profiled_forwards=n,
-        wall_ms_per_seq=wall_us / n / 1e3,
-        device_ms_per_seq=dev_us / n / 1e3,
-        device_launches_per_seq=len(events) / n,
-        device_busy_share=_busy_share(events, wall_us),
-        hand_written={k: dict(device_ms_per_seq=v[0] / n / 1e3,
-                              device_launches_per_seq=v[1] / n)
-                      for k, v in mine.items()},
-        top_kernels=[dict(name=k[:120], ms_per_seq=v[0] / n / 1e3,
-                          share_of_device=v[0] / dev_us,
-                          calls_per_seq=v[1] / n) for k, v in top])
+    return {
+        f"wall_ms_per_{per}": wall_us / n / 1e3,
+        f"device_ms_per_{per}": dev_us / n / 1e3,
+        f"device_launches_per_{per}": len(events) / n,
+        "device_busy_share": _busy_share(events, wall_us),
+        "hand_written": {k: {f"device_ms_per_{per}": v[0] / n / 1e3,
+                             f"device_launches_per_{per}": v[1] / n}
+                         for k, v in mine.items()},
+        "top_kernels": [{"name": k[:120], f"ms_per_{per}": v[0] / n / 1e3,
+                         "share_of_device": v[0] / dev_us,
+                         f"calls_per_{per}": v[1] / n} for k, v in top]}
 
 
 def _structure_diff(a, b, prefix=""):
@@ -531,6 +630,161 @@ def card_vs_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the forward on the packed route
+# ---------------------------------------------------------------------------
+
+def packed_forward(dev, data, model, fwd, rt):
+    from temporal_latticenet_tpu_torch.config import ModelConfig
+    from temporal_latticenet_tpu_torch.ops import _cuda
+    from temporal_latticenet_tpu_torch.train.engine import sequence_lattice
+
+    pos, val, mask = data
+    pos_d, val_d, mask_d = (torch.as_tensor(a, device=dev) for a in data)
+    with torch.no_grad():
+        lat, _, _ = sequence_lattice(ModelConfig(), rt, pos_d, val_d, mask_d)
+        red_k4 = model.reduce_pointnet(lat, val_d)
+        logp_k4, _, _ = fwd(pos, val, mask)
+        with packed_route():
+            red_k5 = model.reduce_pointnet(lat, val_d)
+            _cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            logp_k5, _, aux = fwd(pos, val, mask)
+            torch.cuda.synchronize()
+            launches = _cuda.launch_counts()
+    check_output(logp_k5, aux, rt, mask[-1])
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the packed route: "
+                             f"{missing}")
+    if not torch.equal(red_k4, red_k5):
+        raise AssertionError("the packed route's reduced pointnet tensor "
+                             "differs from the default route's")
+    valid = torch.as_tensor(mask[-1], device=dev)
+    d = float((logp_k5 - logp_k4)[valid].abs().max())
+    if d > LOGP_ATOL:
+        raise AssertionError(f"log-probabilities differ between the routes: "
+                             f"{d}")
+    return dict(launches=launches, reduced_bit_equal=True,
+                logp_max_abs_diff=d)
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the training step
+# ---------------------------------------------------------------------------
+
+def make_trainer(rt_kw, device, state_dict=None):
+    from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.train import engine
+
+    cfg, rt = ModelConfig(), RuntimeConfig(**rt_kw, remat_mode="full")
+    model, state = engine.create_train_state(cfg, rt, 1e-3, 1e-3, seed=0,
+                                             device=device)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    train_step, _ = engine.make_train_step(model, cfg, rt)
+    return model, state, train_step
+
+
+def train_batch(p: int, device):
+    from temporal_latticenet_tpu_torch.train.engine import SeqBatch
+    return SeqBatch(*(torch.as_tensor(a, device=device)[None]
+                      for a in lidar_labelled(p)))
+
+
+def quartiles(xs):
+    q = statistics.quantiles(xs, n=4)
+    return [q[0], q[2]]
+
+
+def train_flagship(dev, forward_launches):
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    model, state, train_step = make_trainer(FLAGSHIP_RT, dev)
+    batch = train_batch(FLAGSHIP_RT["max_points"], dev)
+    losses, norms, secs = [], [], []
+    with packed_route():
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        state, logp, m = train_step(state, batch, 1.0)       # warm step
+        torch.cuda.synchronize()
+        launches = _cuda.launch_counts()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, logp, m = train_step(state, batch, 1.0)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        param_norms = {k: float(p.grad.float().norm())
+                       for k, p in model.named_parameters()}
+        events, wall_us = device_events(
+            lambda: train_step(state, batch, 1.0), PROFILE_STEPS)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the training step: "
+                             f"{missing}")
+    if not launches["sorted_segment_scan"] > forward_launches.get(
+            "sorted_segment_scan", 0):
+        raise AssertionError("K2 launched no more often in the training step "
+                             "than in the forward")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or gradient norm: {losses}, "
+                             f"{norms}")
+    dead = [k for k, v in param_norms.items()
+            if not math.isfinite(v) or (v == 0 and not k.endswith(UNREAD_PARAMS))]
+    if dead:
+        raise AssertionError(f"zero or non-finite gradients: {dead}")
+    if not bool(torch.isfinite(logp).all()):
+        raise AssertionError("non-finite log-probabilities")
+    return dict(steps=TRAIN_STEPS, seconds_per_step=statistics.median(secs),
+                quartiles=quartiles(secs), seconds_all=secs,
+                peak_mem_gb=peak_gb, losses=losses, grad_norms=norms,
+                launches=launches, nr_vertices=int(m["nr_vertices"]),
+                vertex_overflow=bool(m["vertex_overflow"]),
+                param_grad_norm_min=min(v for k, v in param_norms.items()
+                                        if not k.endswith(UNREAD_PARAMS)),
+                profiled_steps=PROFILE_STEPS,
+                **device_summary(events, wall_us, PROFILE_STEPS, "step"))
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = float(a.norm()), float(b.norm())
+    if na == 0 and nb == 0:
+        return 1.0
+    return float(a @ b) / (na * nb)
+
+
+def train_card_vs_cpu(dev):
+    cpu_model, _, cpu_step = make_trainer(SMALL_RT, "cpu")
+    _, _, dev_step = make_trainer(SMALL_RT, dev, cpu_model.state_dict())
+    p = SMALL_RT["max_points"]
+    with packed_route():
+        loss_c, g_c = cpu_step.grad_step(train_batch(p, "cpu"))
+        loss_d, g_d = dev_step.grad_step(train_batch(p, dev))
+    d_loss = abs(float(loss_c) - float(loss_d))
+    cos = {k: _cosine(g_c[k], g_d[k].cpu()) for k in g_c}
+    worst = min(cos, key=cos.get)
+    n_c = math.sqrt(sum(float(g.double().pow(2).sum()) for g in g_c.values()))
+    n_d = math.sqrt(sum(float(g.double().pow(2).sum()) for g in g_d.values()))
+    if d_loss > LOSS_ATOL or cos[worst] < GRAD_COSINE \
+            or abs(n_d - n_c) > NORM_RTOL * n_c:
+        raise AssertionError(f"gradients differ card vs CPU: loss {d_loss}, "
+                             f"cosine {cos[worst]} ({worst}), norms {n_d} vs "
+                             f"{n_c}")
+    return dict(points=p, loss_cpu=float(loss_c), loss_abs_diff=d_loss,
+                min_grad_cosine=cos[worst], min_cosine_param=worst,
+                grad_norm_cpu=n_c, grad_norm_card=n_d,
+                tolerance=dict(loss=LOSS_ATOL, cosine=GRAD_COSINE,
+                               norm_rtol=NORM_RTOL))
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -589,9 +843,34 @@ def main(argv=None) -> int:
                 f"device busy {prof['device_busy_share']:.3f}; "
                 f"hand-written {json.dumps(prof['hand_written'])}")
         phase("card_vs_cpu", lambda: card_vs_cpu(dev))
+        packed = phase("forward_packed", lambda: packed_forward(
+            dev, data, model, fwd_fn, rt))
+        if packed:
+            log(f"[forward_packed] reduced tensor bit-equal, max |d logp| "
+                f"{packed['logp_max_abs_diff']}; launches "
+                f"{packed['launches']}")
+        del model, fwd_fn
+        torch.cuda.empty_cache()
+        train = phase("train", lambda: train_flagship(
+            dev, (fwd or {}).get("launches") or {}))
+        if train:
+            log(f"[train] {train['seconds_per_step']:.4f} s/step (quartiles "
+                f"{train['quartiles']}) on {dline}; peak "
+                f"{train['peak_mem_gb']:.2f} GB; losses {train['losses']}; "
+                f"launches {train['launches']}; "
+                f"{train['device_ms_per_step']:.2f} device ms per step, "
+                f"device busy {train['device_busy_share']:.3f}; "
+                f"hand-written {json.dumps(train['hand_written'])}")
+        phase("train_card_vs_cpu", lambda: train_card_vs_cpu(dev))
 
-    launches = (report.get("forward") or {}).get("launches") or {}
+    # launches: the training step (this slice's path, on the packed route);
+    # the forwards' counts beside them
+    launches = (report.get("train") or {}).get("launches") or {}
+    fwd_launches = (report.get("forward") or {}).get("launches") or {}
+    packed_launches = (report.get("forward_packed") or {}).get("launches") \
+        or {}
     on_path = (report.get("profile") or {}).get("hand_written") or {}
+    on_step = (report.get("train") or {}).get("hand_written") or {}
     line = []
     for name, meta in KERNELS.items():
         k = (kernels or {}).get(name) or {}
@@ -602,8 +881,12 @@ def main(argv=None) -> int:
             plain_ms=k.get("plain_ms"), bound_ms=k.get("bound_ms"),
             bound_by=k.get("bound_by"), library_ms=k.get("library_ms"),
             wall_ms=k.get("wall_ms"), case=k.get("case"),
+            launches_forward=fwd_launches.get(name, 0),
+            launches_forward_packed=packed_launches.get(name, 0),
             main_path_device_ms_per_seq=(on_path.get(name) or {}).get(
                 "device_ms_per_seq"),
+            main_path_device_ms_per_step=(on_step.get(name) or {}).get(
+                "device_ms_per_step"),
             cases=k.get("cases")))
     report["device_line"] = dline
     if args.out:

@@ -118,10 +118,11 @@ class AFlowFusion(nn.Module):
         if is_first:
             out = lv
         else:
-            k = nbr.idx.shape[1]
             h_pad = _pad_hidden(h, prev_count, -999999.0)
-            h_nbr = torch.cat([h_pad[nbr.idx[:, : k - 1]], h_pad[:, None, :]],
-                              dim=1)                          # (cap, 9, C)
+            # the 8 neighbor taps through the gather whose backward is
+            # another gather (the convolutions' im2row does the same)
+            nbr_g = lo.gather8_sym(h_pad, nbr.idx[:, :8])
+            h_nbr = torch.cat([nbr_g, h_pad[:, None, :]], dim=1)  # (cap, 9, C)
             found = nbr.found.to(torch.float32)
             dist = torch.sqrt(torch.clamp(
                 ((h_nbr - lv[:, None, :]) ** 2).sum(dim=-1), min=1e-24))
@@ -129,7 +130,8 @@ class AFlowFusion(nn.Module):
             if not self.use_center:
                 dist = torch.cat([dist[:, :-1], torch.zeros_like(dist[:, -1:])],
                                  dim=1)
-            denom = dist.sum(dim=1, keepdim=True)
+            # the normaliser gets no gradient, as in the JAX package
+            denom = dist.sum(dim=1, keepdim=True).detach()
             dist = dist / torch.where(denom == 0.0, torch.ones_like(denom),
                                       denom)
             alpha, beta = self.AFLOW.alpha, self.AFLOW.beta

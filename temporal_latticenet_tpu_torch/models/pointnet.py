@@ -3,8 +3,10 @@
 
 The per-row MLP runs for all frames at once over the union-sorted rows;
 every (vertex, frame) bucket is a contiguous sub-run there, so the
-per-vertex max is one segmented max scan (kernel K4 through
-``ops/segment.sorted_packed_max``) read at the bucket tails.  Each frame
+per-vertex max is one segmented max scan (kernel K4, or K5 and K4 under
+``TLN_MAXSCAN_PACKED=1``, through ``ops/segment.sorted_packed_max``) read
+at the bucket tails; its gradient flows straight through to the winning
+rows.  Each frame
 then resumes with its slice of the reduced tensor: early temporal fusion
 and the first lattice convolution.  Reference quirks kept: the winning
 row's barycentric weight is concatenated per channel, and vertices touched
@@ -71,7 +73,8 @@ class PointNetSeq(nn.Module):
             if i < n - 1:
                 x = torch.relu(x)
         mx, bary_sel = sorted_packed_max(x, bary_s, live, spn.head_count,
-                                         spn.tailpos, nr_points_all > 0)
+                                         spn.bucket, spn.tailpos,
+                                         nr_points_all > 0)
         cap = nr_points_all.shape[1]
         c = x.shape[-1]
         reduced = torch.cat([mx.reshape(t, cap, c),

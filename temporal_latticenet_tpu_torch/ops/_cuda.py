@@ -34,12 +34,14 @@ SOURCES = {
     "seg_scan": ("seg_scan.cu", ()),
     "seg_sum_tails": ("seg_sum_tails.cu", ()),
     "seg_max": ("seg_max.cu", ()),
+    "seg_max_window": ("seg_max_window.cu", ()),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"fused_simplex_pack": 0, "sorted_segment_scan": 0,
-            "seg_sum_tails": 0, "sorted_segment_max_u32": 0}
+            "seg_sum_tails": 0, "sorted_segment_max_u32": 0,
+            "sorted_segment_max_window": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -1,19 +1,29 @@
-"""Lattice compute ops of the offline sequence forward (forward halves of the
-JAX package's ``ops/lattice_ops.py``): neighbor tables, the one-hop lattice
-convolution, the coarsen splat and finefy slice through a level link, and
-the deform-slice gather.
+"""Lattice compute ops of the offline sequence forward and its backward
+(port of the JAX package's ``ops/lattice_ops.py``): neighbor tables, the
+one-hop lattice convolution, the coarsen splat and finefy slice through a
+level link, and the deform-slice gather.
 
 Vertex-value arrays are capacity-padded (cap, C) and exactly zero outside
 the occupied rows [1, count) (:func:`mask_rows`); gathers through absent
 neighbors therefore read zeros without an explicit mask.
+
+The JAX package's three ``custom_vjp``s are ``torch.autograd.Function``s
+here, with the same backward: the neighborhood gather's transpose is another
+gather (:class:`_Gather8Sym`), the coarsen splat's is the barycentric slice
+(:class:`_SplatSorted`), and the finefy slice's is the splat on the link's
+dst-sorted view through kernel K2 (:class:`_SliceSorted`).  Barycentric
+weights get no gradient (nothing differentiates point positions).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .seg_scan import sorted_segment_scan
 from .vertex_table import PACKED_SENTINEL
@@ -66,12 +76,51 @@ def mask_rows(values: torch.Tensor, count) -> torch.Tensor:
                                                           device=values.device))
 
 
+# adjoint tap pairing: neighbor_offsets lists [+o_0..+o_d, -o_0..-o_d], so
+# "i sees j at tap k" <=> "j sees i at tap (k + d+1) % 2(d+1)"
+_PAIR_3D = tuple((k + 4) % 8 for k in range(8))
+
+
+class _Gather8Sym(torch.autograd.Function):
+    """Neighborhood gather (C, 8, Cin) whose backward is another gather
+    (``lattice_ops._gather8_sym``): the one-hop offsets come in +/- pairs,
+    so "who reads row j at tap k" is ``idx8[j, pair(k)]``, and the
+    cotangent is one flat gather through the same table at
+    ``inv * 8 + tap``, summed over taps in float32.  Requires idx8 in
+    neighbor_offsets order and zero cotangents at rows 0 and >= count
+    upstream (the ``mask_rows`` invariant)."""
+
+    @staticmethod
+    def forward(ctx, values, idx8):
+        ctx.save_for_backward(idx8)
+        return values[idx8]
+
+    @staticmethod
+    def backward(ctx, dg):
+        (idx8,) = ctx.saved_tensors
+        cap, taps, cin = dg.shape
+        inv = idx8[:, list(_PAIR_3D)]
+        fi = inv * taps + torch.arange(taps, device=idx8.device)[None, :]
+        g = dg.reshape(cap * taps, cin)[fi]
+        acc = torch.where((inv > 0)[..., None], g.to(torch.float32),
+                          torch.zeros((), device=dg.device)).sum(dim=1)
+        return acc.to(dg.dtype), None
+
+
+def gather8_sym(values: torch.Tensor, idx8: torch.Tensor) -> torch.Tensor:
+    """``values[idx8]`` for a (C, 8) one-hop table over the same C rows,
+    with the gather-adjoint backward of :class:`_Gather8Sym`."""
+    if idx8.shape != (values.shape[0], 8):
+        raise ValueError(f"gather8_sym: idx8 must be ({values.shape[0]}, 8), "
+                         f"got {tuple(idx8.shape)}")
+    return _Gather8Sym.apply(values, idx8)
+
+
 def gather_rowified(values: torch.Tensor, nbr: NeighborTable) -> torch.Tensor:
     """Im2row: (C, 9*Cin) neighborhood features, center last.  The center
     tap is the row itself, so it is concatenated instead of gathered."""
     cap = values.shape[0]
-    k = nbr.idx.shape[1]
-    g = values[nbr.idx[:, : k - 1]]
+    g = gather8_sym(values, nbr.idx[:, :8])
     g = torch.cat([g, values[:, None, :]], dim=1)
     return g.reshape(cap, -1)
 
@@ -89,12 +138,38 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor,
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
+_REMAT_CONV_ROWS = contextvars.ContextVar("remat_conv_rows", default=False)
+
+
+@contextlib.contextmanager
+def remat_conv_rows(enabled: bool = True):
+    """Within this context (and with gradients on), every
+    :func:`lattice_conv` recomputes its (C, 9*Cin) rowified rows in the
+    backward instead of saving them: the JAX package's selective remat
+    (``save_anything_except_these_names("lattice_conv_rows")``)."""
+    token = _REMAT_CONV_ROWS.set(enabled)
+    try:
+        yield
+    finally:
+        _REMAT_CONV_ROWS.reset(token)
+
+
+def _gather_matmul(values, nbr, weight, compute_dtype):
+    return matmul_f32(gather_rowified(values, nbr), weight, compute_dtype)
+
+
 def lattice_conv(values: torch.Tensor, nbr: NeighborTable,
                  weight: torch.Tensor, count, bias=None,
                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One-hop lattice convolution: gather -> (C, 9*Cin) @ (9*Cin, Cout)."""
-    rows = gather_rowified(values.to(compute_dtype), nbr)
-    out = matmul_f32(rows, weight, compute_dtype)
+    values = values.to(compute_dtype)
+    if _REMAT_CONV_ROWS.get() and torch.is_grad_enabled():
+        # no randomness inside: the rng state need not be kept
+        out = checkpoint(_gather_matmul, values, nbr, weight,
+                         compute_dtype, use_reentrant=False,
+                         preserve_rng_state=False)
+    else:
+        out = _gather_matmul(values, nbr, weight, compute_dtype)
     if bias is not None:
         out = out + bias
     return mask_rows(out, count)
@@ -142,21 +217,65 @@ def augment_link_sorted(corner_idx: torch.Tensor, corner_bary: torch.Tensor,
                      tail_live=live)
 
 
-def splat_to_coarse(fine_values: torch.Tensor,
-                    link: LevelLink) -> torch.Tensor:
-    """Barycentric splat of fine vertex features onto the coarse level:
-    gather the dst-sorted entries, one segmented sum over them (kernel K2),
-    and read each destination's total at its tail entry.  Returns
-    (Cc, C), Cc the link's coarse capacity."""
+def _splat_sorted_impl(fine_values: torch.Tensor,
+                       link: LevelLink) -> torch.Tensor:
+    """Gather the dst-sorted entries, one segmented sum over them (kernel
+    K2), and read each destination's total at its tail entry."""
     rows = (fine_values[link.sorted_src] * link.sorted_w[:, None]).contiguous()
     scanned = sorted_segment_scan(link.sorted_dst, rows, "sum")
     return scanned[link.tailpos] * link.tail_live[:, None]
 
 
-def slice_to_fine(coarse_values: torch.Tensor, link: LevelLink) -> torch.Tensor:
-    """Barycentric slice of coarse features back onto the fine vertices."""
+def _slice_impl(coarse_values: torch.Tensor, link: LevelLink) -> torch.Tensor:
     g = coarse_values[link.corner_idx]                       # (Cf, 4, C)
     return torch.einsum("fvc,fv->fc", g, link.corner_bary)
+
+
+class _SplatSorted(torch.autograd.Function):
+    """The coarsen splat (K2 forward); it is linear in the fine values, and
+    its exact transpose, the backward, is the barycentric slice: a gather,
+    never a scatter."""
+
+    @staticmethod
+    def forward(ctx, fine_values, link):
+        ctx.link = link
+        return _splat_sorted_impl(fine_values, link)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return _slice_impl(d_out, ctx.link), None
+
+
+class _SliceSorted(torch.autograd.Function):
+    """The finefy slice (a gather forward); its transpose, the backward, is
+    the barycentric splat on the link's dst-sorted view through kernel K2
+    (``lattice_ops._slice_sorted_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, coarse_values, link):
+        ctx.link = link
+        return _slice_impl(coarse_values, link)
+
+    @staticmethod
+    def backward(ctx, d_fine):
+        return _splat_sorted_impl(d_fine, ctx.link), None
+
+
+def splat_to_coarse(fine_values: torch.Tensor,
+                    link: LevelLink) -> torch.Tensor:
+    """Barycentric splat of fine vertex features onto the coarse level
+    (K2 on the link's dst-sorted view).  Returns (Cc, C), Cc the link's
+    coarse capacity."""
+    return _SplatSorted.apply(fine_values, link)
+
+
+def slice_to_fine(coarse_values: torch.Tensor, link: LevelLink) -> torch.Tensor:
+    """Barycentric slice of coarse features back onto the fine vertices;
+    ``coarse_values`` has the link's Cc rows."""
+    if coarse_values.shape[0] != link.tailpos.shape[0]:
+        raise ValueError(f"slice_to_fine: {coarse_values.shape[0]} coarse rows "
+                         f"for a link of {link.tailpos.shape[0]}")
+    return _SliceSorted.apply(coarse_values, link)
 
 
 def slice_gather(values: torch.Tensor, point_vertex: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Kernels K2-K4: segmented scans over contiguous runs of sorted rows.
+"""Kernels K2-K5: segmented scans over contiguous runs of sorted rows.
 
 Runs are given by nondecreasing run ids (``head_count``): rows with equal
 ids form one run.  Each public function launches its CUDA kernel for CUDA
@@ -28,6 +28,8 @@ from . import _cuda
 INT_MIN = -0x80000000
 _THREADS = 256
 _ROWS_PER_THREAD = 4
+# the largest window K5 takes: its shared-memory halo is 2 * window - 1 rows
+MAX_WINDOW = 16
 
 _MODES = {"sum_f32": 0, "sum_i32": 1, "max_i32": 2, "first": 3, "max_u32": 4}
 
@@ -93,6 +95,20 @@ def sorted_segment_max_u32_plain(head_count, x):
     """uint32 order via the sign flip: x ^ 0x80000000 orders as int32."""
     flip = torch.tensor(INT_MIN, dtype=torch.int32, device=x.device)
     return _max_scan(head_count, x ^ flip) ^ flip
+
+
+def sorted_segment_max_window_plain(head_count, x, window=None):
+    """Row r: the uint32 max over rows [max(head(r), r - 2 window + 1), r],
+    one shifted compare per row of the window; ``None`` is the full run."""
+    if window is None:
+        return sorted_segment_max_u32_plain(head_count, x)
+    flip = torch.tensor(INT_MIN, dtype=torch.int32, device=x.device)
+    xs = x ^ flip
+    out = xs.clone()
+    for j in range(1, min(2 * window, x.shape[0])):
+        same = (head_count[j:] == head_count[:-j])[:, None]
+        out[j:] = torch.where(same, torch.maximum(out[j:], xs[:-j]), out[j:])
+    return out ^ flip
 
 
 # ---------------------------------------------------------------------------
@@ -223,4 +239,36 @@ def sorted_segment_max_u32(head_count: torch.Tensor,
     out = _scan_cuda("seg_max", "tln_seg_max", head_count, x,
                      _MODES["max_u32"])
     _cuda.LAUNCHES["sorted_segment_max_u32"] += 1
+    return out
+
+
+def sorted_segment_max_window(head_count: torch.Tensor, x: torch.Tensor,
+                              window=None) -> torch.Tensor:
+    """K5: windowed inclusive segmented running max of uint32 bit patterns
+    held in an int32 (Q, C) tensor.
+
+    Row r holds the max over rows [max(head(r), r - 2 window + 1), r] of its
+    run: every row covers its last ``2 * window`` same-run rows and never
+    crosses a run head.  ``window`` is 1 to :data:`MAX_WINDOW`; ``None``
+    (the whole run) is K4's function and launches K4."""
+    if window is None:
+        return sorted_segment_max_u32(head_count, x)
+    if not 1 <= window <= MAX_WINDOW:
+        raise ValueError(f"sorted_segment_max_window: window must be in "
+                         f"[1, {MAX_WINDOW}] or None, got {window}")
+    _check(head_count, x, (torch.int32,), "sorted_segment_max_window")
+    if x.shape[1] > 64:
+        raise ValueError("sorted_segment_max_window: C must be <= 64, got "
+                         f"{x.shape[1]}")
+    if x.device.type == "cpu":
+        return sorted_segment_max_window_plain(head_count, x, window)
+    q, c = x.shape
+    out = torch.empty_like(x)
+    fn = _cuda.function("seg_max_window", "tln_seg_max_window",
+                        [_cuda.P, _cuda.P, _cuda.P, _cuda.I64, _cuda.I32,
+                         _cuda.I32, _cuda.P])
+    err = fn(head_count.data_ptr(), x.data_ptr(), out.data_ptr(), q, c,
+             window, _cuda.stream_ptr())
+    _cuda.check("seg_max_window", err, "sorted_segment_max_window")
+    _cuda.LAUNCHES["sorted_segment_max_window"] += 1
     return out

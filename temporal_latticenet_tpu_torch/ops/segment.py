@@ -1,35 +1,56 @@
 """Packed value + barycentric-weight segment max over contiguous sorted
-sub-runs (forward of the JAX package's ``ops/segment.sorted_packed_max``).
+sub-runs (port of the JAX package's ``ops/segment.sorted_packed_max``, with
+its straight-through backward).
 
 The bf16 value bits (monotone-mapped) go into the high 16 bits of a uint32
 and the quantised barycentric weight into the low 16, so one segmented
-running max (kernel K4) carries both; each bucket's result is read at its
-tail row.  Max does not depend on order, so the tail maxima are bit-equal
-to the JAX package's windowed two-level scan.
+running max carries both; each bucket's result is read at its tail row.
+The uint32 bits are held in int32 tensors.
+
+Two routes, bit-equal at the tails (max does not depend on order):
+
+* the default: one full-run segmented max (kernel K4) read at the tails;
+* with ``TLN_MAXSCAN_PACKED=1`` in the environment (read at call time, the
+  JAX package's own switch) and C <= 64: the two-level tail max, a windowed
+  max (kernel K5) plus a full-run max over one chunk-end summary row per
+  16 rows (K4) and a correction (:func:`_seg_max_tails_twolevel`).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from .seg_scan import sorted_segment_max_u32
+from .seg_scan import INT_MIN, sorted_segment_max_u32, sorted_segment_max_window
+
+CHUNK = 16   # rows per chunk of the two-level tail max (window CHUNK // 2)
+
+
+def _packed_route() -> bool:
+    """True when ``TLN_MAXSCAN_PACKED=1``: C <= 64 maxima take the two-level
+    route on K5 (the JAX package reads the same variable at call time)."""
+    return os.environ.get("TLN_MAXSCAN_PACKED", "0") == "1"
 
 
 def _pack_value_bary(data: torch.Tensor, bary: torch.Tensor,
                      live: torch.Tensor) -> torch.Tensor:
-    """(Q, C) int64 holding uint32 values: monotone bf16 bits << 16 |
+    """(Q, C) int32 holding uint32 bits: monotone bf16 bits << 16 |
     round(bary * 65535); 0 for dead rows (the uint32 max identity)."""
-    bits = data.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    bits = data.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
     mono = torch.where(bits >= 0x8000, bits ^ 0xFFFF, bits | 0x8000)
-    b16 = (torch.clamp(bary, 0.0, 1.0) * 65535.0 + 0.5).to(torch.int64)
-    packed = (mono << 16) | b16[:, None]
+    # the high half as a signed 16-bit value, so the product below cannot
+    # overflow int32
+    hi = torch.where(mono >= 0x8000, mono - 0x10000, mono)
+    b16 = (torch.clamp(bary, 0.0, 1.0) * 65535.0 + 0.5).to(torch.int32)
+    packed = hi * 0x10000 + b16[:, None]
     return torch.where(live[:, None], packed, torch.zeros_like(packed))
 
 
 def _decode_packed(best: torch.Tensor):
-    """(B, C) int64 uint32 values -> (max (B, C) float32, bary (B, C))."""
+    """(B, C) int32 uint32 bits -> (max (B, C) float32, bary (B, C))."""
     has = best != 0
-    mono = best >> 16
+    mono = (best >> 16) & 0xFFFF
     bits = torch.where(mono >= 0x8000, mono ^ 0x8000, mono ^ 0xFFFF)
     bits = torch.where(bits >= 0x8000, bits - 0x10000, bits)
     mx = bits.to(torch.int16).view(torch.bfloat16).to(torch.float32)
@@ -39,22 +60,108 @@ def _decode_packed(best: torch.Tensor):
     return mx, bary_sel
 
 
-def sorted_packed_max(data, bary, live, head_count, tailpos, bucket_live):
+def _umax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise max of int32 tensors compared as uint32."""
+    flip = torch.tensor(INT_MIN, dtype=torch.int32, device=a.device)
+    return torch.maximum(a ^ flip, b ^ flip) ^ flip
+
+
+def _seg_max_tails_twolevel(head_count: torch.Tensor, packed: torch.Tensor,
+                            tails: torch.Tensor,
+                            chunk: int = CHUNK) -> torch.Tensor:
+    """Per-tail run max from a windowed max plus chunk-summary correction
+    (the JAX package's ``segment._seg_max_tails_twolevel``).
+
+    The windowed max (K5, window ``chunk // 2``) makes every row cover its
+    last ``chunk`` same-run rows, so chunk-end rows hold their whole chunk
+    and consecutive chunk-end summaries tile a long run back to its head.
+    A full-run max over the Q / chunk summaries (K4) then gives, at the
+    last chunk end before each tail, the max over everything the tail's
+    window misses:
+
+        tail max = max(capped[tail], scanned_summary[tail // chunk - 1])
+
+    with the correction dropped when that chunk end lies in an earlier run
+    or the tail sits in chunk 0.  Q is padded to a multiple of ``chunk``
+    with rows of fresh run ids.
+    """
+    q, c = packed.shape
+    hc = head_count
+    qp = -(-q // chunk) * chunk
+    if qp != q:
+        pad = qp - q
+        packed = torch.cat([packed, torch.zeros((pad, c), dtype=packed.dtype,
+                                                device=packed.device)])
+        hc = torch.cat([hc, hc[-1] + torch.arange(1, pad + 1, dtype=hc.dtype,
+                                                  device=hc.device)])
+    capped = sorted_segment_max_window(hc, packed, chunk // 2)
+    summ = capped[chunk - 1::chunk].contiguous()
+    summ_ids = hc[chunk - 1::chunk].contiguous()
+    scanned = sorted_segment_max_u32(summ_ids, summ)
+    base = capped[tails]
+    e_chunk = tails // chunk - 1
+    e_row = e_chunk.clamp(min=0) * chunk + chunk - 1
+    ok = (e_chunk >= 0) & (hc[e_row] == hc[tails])
+    corr = torch.where(ok[:, None], scanned[e_chunk.clamp(min=0)],
+                       torch.zeros((), dtype=packed.dtype, device=packed.device))
+    return _umax(base, corr)
+
+
+class _SortedPackedMax(torch.autograd.Function):
+    """Forward: the packed max read at the bucket tails.  Backward: the
+    straight-through max gradient of ``segment._sorted_packed_max_bwd``:
+    each bucket/channel cotangent flows to the rows whose packed value
+    equals the bucket's best, by one gather by bucket id."""
+
+    @staticmethod
+    def forward(ctx, data, bary, live, head_count, bucket, tailpos,
+                bucket_live):
+        packed = _pack_value_bary(data, bary, live)
+        tails = tailpos.reshape(-1)
+        if packed.shape[1] <= 64 and _packed_route():
+            best = _seg_max_tails_twolevel(head_count, packed, tails)
+        else:
+            best = sorted_segment_max_u32(head_count, packed)[tails]
+        best = torch.where(bucket_live.reshape(-1, 1), best,
+                           torch.zeros_like(best))
+        ctx.save_for_backward(packed, best, bucket)
+        ctx.data_dtype = data.dtype
+        return _decode_packed(best)
+
+    @staticmethod
+    def backward(ctx, dmx, dbary_sel):
+        packed, best, bucket = ctx.saved_tensors
+        nb, c = best.shape
+
+        def pad(a):
+            return torch.cat([a, torch.zeros((1, c), dtype=a.dtype,
+                                             device=a.device)])
+
+        b = bucket.clamp(max=nb)
+        sel_best = pad(best)[b]
+        winner = (packed == sel_best) & (sel_best != 0)
+        zero = torch.zeros((), dtype=dmx.dtype, device=dmx.device)
+        ddata = torch.where(winner, pad(dmx)[b], zero).to(ctx.data_dtype)
+        dbary = None
+        if ctx.needs_input_grad[1]:
+            dbary = torch.where(winner, pad(dbary_sel)[b], zero).sum(-1)
+        return ddata, dbary, None, None, None, None, None
+
+
+def sorted_packed_max(data, bary, live, head_count, bucket, tailpos,
+                      bucket_live):
     """Packed value + bary segment max over contiguous sorted sub-runs.
 
     Args:
-      data: (Q, C) rows in sorted order (cast to bf16 for packing).
+      data: (Q, C) rows in sorted order (cast to bf16 for packing); the
+        gradient flows to it straight through the winning rows.
       bary: (Q,) float32; live: (Q,) bool.
       head_count: (Q,) int32 sub-run ids (nondecreasing).
+      bucket: (Q,) int64 bucket id per row (``T * cap`` for dead rows), for
+        the backward's gather.
       tailpos: (B,) or (T, cap) int64 sorted position of each bucket tail.
       bucket_live: matching bool, False for empty buckets.
     Returns (mx (B, C) float32, bary_sel (B, C) float32).
     """
-    packed = _pack_value_bary(data, bary, live)
-    # uint32 bits as int32 (two's complement, spelled out)
-    bits = torch.where(packed >= 1 << 31, packed - (1 << 32), packed) \
-        .to(torch.int32).contiguous()
-    scanned = sorted_segment_max_u32(head_count, bits)
-    best = scanned[tailpos.reshape(-1)].to(torch.int64) & 0xFFFFFFFF
-    best = torch.where(bucket_live.reshape(-1, 1), best, torch.zeros_like(best))
-    return _decode_packed(best)
+    return _SortedPackedMax.apply(data, bary, live, head_count, bucket,
+                                  tailpos, bucket_live)

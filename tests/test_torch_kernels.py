@@ -1,11 +1,13 @@
-"""Kernels K1-K4 of the PyTorch port against the JAX package's Pallas
+"""Kernels K1-K5 of the PyTorch port against the JAX package's Pallas
 kernels (run in interpret mode on the CPU, as tests/test_pallas_*.py do),
 plus the CUDA kernels against their plain versions on the card.
 
 Tolerances: integer outputs (keys, run ids, ``first``, ``max``, packed
 maxima) are bit-equal; float32 sums may differ only in summation order
 (the plain version sums in float64 and rounds once), so they are held to
-1e-4 relative to the magnitude of the running sums.
+1e-4 relative to the magnitude of the running sums.  K5's windowed rows
+have a coverage contract, not one value: each row lies between the exact
+max over its last ``2 * window - 1`` same-run rows and the full-run max.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from temporal_latticenet_tpu.ops.pallas_simplex import fused_simplex_pack as j_f
 from temporal_latticenet_tpu_torch.ops import _cuda
 from temporal_latticenet_tpu_torch.ops import fused_simplex as fs
 from temporal_latticenet_tpu_torch.ops import seg_scan as ss
+from temporal_latticenet_tpu_torch.ops import segment as tseg
 
 
 def _runs(rng, q, p=0.05):
@@ -181,6 +184,114 @@ def test_k4_tails_match_pallas_two_level():
 
 
 # ---------------------------------------------------------------------------
+# K5 sorted_segment_max_window (the TPU's lane-packed windowed kernel, taken
+# under TLN_MAXSCAN_PACKED=1)
+# ---------------------------------------------------------------------------
+
+def _adversarial_heads(rng, q, chunk=16):
+    """Run lengths from 1 to over a kernel tile, with heads and tails on
+    chunk and tile boundaries (tests/test_pallas_scan.py)."""
+    lens = []
+    while sum(lens) < q - 3000:
+        lens.append(int(rng.choice([1, 2, 3, 7, chunk - 1, chunk, chunk + 1,
+                                    2 * chunk, 100])))
+    lens += [2500, 16, 1]
+    lens.append(q - sum(lens))
+    heads = np.zeros(q, bool)
+    heads[np.cumsum([0] + lens[:-1])] = True
+    return heads
+
+
+def _window_max(hc, x, rows):
+    """numpy: per row, the uint32 max over its last ``rows`` same-run rows."""
+    out = x.copy()
+    for j in range(1, rows):
+        same = (hc[j:] == hc[:-j])[:, None]
+        out[j:] = np.where(same, np.maximum(out[j:], x[:-j]), out[j:])
+    return out
+
+
+@pytest.mark.parametrize("c", [16, 64])
+def test_k5_rows_meet_the_coverage_contract(monkeypatch, c):
+    """The Pallas packed kernel's rows (interpret mode) and the port's plain
+    rows both lie between the exact max over the last 2W-1 same-run rows
+    and the full-run max; the plain rows are exactly the 2W-row max."""
+    monkeypatch.setenv("TLN_MAXSCAN_PACKED", "1")
+    rng = np.random.default_rng(c)
+    q, window = 4096, 8
+    hc = np.cumsum(_adversarial_heads(rng, q)).astype(np.int32)
+    x = rng.integers(0, 2**32, (q, c), dtype=np.uint32)
+    pallas = np.asarray(ps.sorted_segment_max_u32(
+        jnp.asarray(hc), jnp.asarray(x), tile=512, interpret=True,
+        max_window=window))
+    plain = ss.sorted_segment_max_window(
+        _t(hc), _t(x.view(np.int32)), window).numpy().view(np.uint32)
+    lo = _window_max(hc, x, 2 * window - 1)
+    hi = _window_max(hc, x, q)
+    for rows in (pallas, plain):
+        assert (rows >= lo).all() and (rows <= hi).all()
+    np.testing.assert_array_equal(plain, _window_max(hc, x, 2 * window))
+
+
+def test_k5_full_window_is_k4(monkeypatch):
+    """At window=None the packed Pallas kernel computes K4's function: the
+    port routes it to K4 (plain version on the CPU)."""
+    monkeypatch.setenv("TLN_MAXSCAN_PACKED", "1")
+    rng = np.random.default_rng(5)
+    q, c = 2048, 64
+    hc = _runs(rng, q, 0.1)
+    x = rng.integers(0, 2**32, (q, c), dtype=np.uint32)
+    want = np.asarray(ps.sorted_segment_max_u32(
+        jnp.asarray(hc), jnp.asarray(x), tile=512, interpret=True))
+    xi = _t(x.view(np.int32))
+    np.testing.assert_array_equal(
+        ss.sorted_segment_max_u32_plain(_t(hc), xi).numpy().view(np.uint32),
+        want)
+    np.testing.assert_array_equal(
+        ss.sorted_segment_max_window(_t(hc), xi, None).numpy()
+        .view(np.uint32), want)
+
+
+@pytest.mark.parametrize("case", ["adversarial", "unpadded"])
+@pytest.mark.parametrize("c", [16, 64])
+def test_twolevel_tails_match_pallas_packed(monkeypatch, c, case):
+    """The port's two-level tail max (K5 window + K4 summary scan +
+    correction) equals the JAX package's on its packed route, bit for bit,
+    and equals the true per-run max."""
+    monkeypatch.setenv("TLN_MAXSCAN_PACKED", "1")
+    rng = np.random.default_rng(c)
+    if case == "adversarial":
+        heads = _adversarial_heads(rng, 8192)
+    else:                                    # Q not a multiple of the chunk
+        heads = rng.random(3001) < 0.08
+        heads[0] = True
+    q = heads.shape[0]
+    tails = np.concatenate([np.flatnonzero(heads)[1:] - 1, [q - 1]])
+    x = rng.integers(0, 2**32, (q, c), dtype=np.uint32)
+    want = np.asarray(jseg._seg_max_tails_twolevel(
+        jnp.asarray(heads), jnp.asarray(x), jnp.asarray(tails), chunk=16,
+        interpret=True))
+    hc = np.cumsum(heads).astype(np.int32)
+    got = tseg._seg_max_tails_twolevel(_t(hc), _t(x.view(np.int32)),
+                                       _t(tails.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(want, _window_max(hc, x, q)[tails])
+
+
+def test_k5_rejects_bad_window():
+    hc = torch.zeros(8, dtype=torch.int32)
+    x = torch.zeros(8, 4, dtype=torch.int32)
+    for w in (0, ss.MAX_WINDOW + 1):
+        with pytest.raises(ValueError):
+            ss.sorted_segment_max_window(hc, x, w)
+    with pytest.raises(ValueError):
+        ss.sorted_segment_max_window(hc, x.float(), 8)
+    with pytest.raises(ValueError):
+        ss.sorted_segment_max_window(hc, torch.zeros(8, 65, dtype=torch.int32),
+                                     8)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions (on the card only)
 # ---------------------------------------------------------------------------
 
@@ -216,12 +327,18 @@ def test_cuda_kernels_match_plain(cuda_device):
                        dtype=torch.int64).to(torch.int32).to(dev)
     assert torch.equal(ss.sorted_segment_max_u32(hc, xi),
                        ss.sorted_segment_max_u32_plain(hc, xi))
+    for c, window in [(64, 8), (16, 8), (3, 1), (64, ss.MAX_WINDOW)]:
+        xw = xi[:, :c].contiguous()
+        assert torch.equal(ss.sorted_segment_max_window(hc, xw, window),
+                           ss.sorted_segment_max_window_plain(hc, xw, window))
     after = _cuda.launch_counts()
     assert after["fused_simplex_pack"] == before["fused_simplex_pack"] + 1
     assert after["sorted_segment_scan"] == before["sorted_segment_scan"] + 6
     assert after["seg_sum_tails"] == before["seg_sum_tails"] + 1
     assert after["sorted_segment_max_u32"] == \
         before["sorted_segment_max_u32"] + 1
+    assert after["sorted_segment_max_window"] == \
+        before["sorted_segment_max_window"] + 4
 
 
 def test_cpu_path_does_not_count_launches():
