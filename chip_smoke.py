@@ -15,9 +15,13 @@ Phases, in order; any failure exits non-zero without the final line:
    call's device time.  Device times are the summed durations of the
    kernels a call launches, from ``torch.profiler``; ``wall_ms`` beside them
    is the CUDA-event time of back-to-back calls, host launch overhead
-   included.  K2's float32 sums run at the coarsen splats' shapes and at
-   the finefy slices' backward shapes; the two-level tail max that K5 (the
-   windowed max) feeds must also equal K4's full-scan tails;
+   included; ``device_ops_per_call`` counts the kernels, copies and memsets
+   of one call.  K2's float32 sums run at the coarsen splats' shapes and at
+   the finefy slices' backward shapes, then at the look-back's edge cases
+   (one run over every row, fewer rows than a tile, a ragged last tile);
+   K3 also takes shuffled, repeated, mid-run and out-of-range tails; every
+   float32 sum must equal a second call bit for bit; the two-level tail max
+   that K5 (the windowed max) feeds must also equal K4's full-scan tails;
 4. the flagship 4-frame offline sequence forward at bench geometry (131,072
    padded points per frame, capacities 49152/24576/12288, trims 36864 and
    40960, sigma 0.6, seeded random weights), with the launch count of every
@@ -187,15 +191,31 @@ def device_events(fn, calls: int):
     return events, wall_us
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int):
     """Device time of one call: the summed durations of the device work it
-    launches, mean over ``iters`` calls after one warm-up call."""
+    launches, mean over ``iters`` calls after one warm-up call; the device
+    operations (kernels, copies, memsets) of one call; the events."""
     fn()
     torch.cuda.synchronize()
-    events, _ = device_events(fn, iters)
-    if not events:
+    # a profiling session now and then records no device events at all
+    for _ in range(3):
+        events, _ = device_events(fn, iters)
+        if events:
+            break
+    else:
         raise RuntimeError("torch.profiler recorded no device work")
-    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+    return (sum(e.time_range.elapsed_us() for e in events) / iters / 1e3,
+            len(events) / iters, events)
+
+
+def split_ms(events, iters: int) -> dict:
+    """Device ms per call of each kernel name (memsets under "Memset")."""
+    out = {}
+    for e in events:
+        name = re.sub(r"^void ", "", e.name).split("(")[0][:48]
+        ms = e.time_range.elapsed_us() / iters / 1e3
+        out[name] = out.get(name, 0.0) + ms
+    return out
 
 
 def bound(nbytes: float, ops: float):
@@ -258,12 +278,14 @@ def check_kernels(dev, inp):
         err, ok, tol = compare(got, want)
         bms, by = bound(nbytes, ops)
         plain_iters = max(1, KERNEL_ITERS // 10)
+        ms, ops, events = device_ms(kernel, KERNEL_ITERS)
         rec = dict(kernel=name, case=label, max_abs_err=err, tolerance=tol,
-                   ok=bool(ok), ms=device_ms(kernel, KERNEL_ITERS),
+                   ok=bool(ok), ms=ms, device_ops_per_call=ops,
+                   split_ms=split_ms(events, KERNEL_ITERS),
                    wall_ms=wall_ms(kernel, KERNEL_ITERS),
-                   plain_ms=device_ms(plain, plain_iters),
+                   plain_ms=device_ms(plain, plain_iters)[0],
                    plain_wall_ms=wall_ms(plain, plain_iters),
-                   library_ms=(device_ms(library, KERNEL_ITERS)
+                   library_ms=(device_ms(library, KERNEL_ITERS)[0]
                                if library else None),
                    bound_ms=bms, bound_by=by)
         log(f"[kernel] {json.dumps(rec)}")
@@ -277,18 +299,22 @@ def check_kernels(dev, inp):
         err = 0.0 if same else float((got.double() - want.double()).abs().max())
         return err, same, "bit-equal"
 
-    def summed(ids, x, tails=None):
+    def summed(ids, x, kernel, tails=None):
+        """Within the summation bound, and bit-equal to a second call."""
         def compare(got, want):
+            rows = x.shape[0]
             if tails is None:
                 absum = ss.sorted_segment_scan_plain(ids, x.abs(), "sum")
                 run_len = run_lengths(ids)
             else:
                 absum = ss.seg_sum_tails_plain(ids, x.abs(), tails)
-                run_len = run_lengths(ids)[tails.clamp(0, q - 1)]
+                run_len = run_lengths(ids)[tails.clamp(0, rows - 1)]
             d = (got.double() - want.double()).abs()
             tol = sum_tolerance(want, absum, run_len)
-            return (float(d.max()), bool((d <= tol).all()),
-                    "|err| <= (n+1) 2^-24 sum|x| per run of n rows")
+            again = torch.equal(got, kernel())
+            return (float(d.max()), bool((d <= tol).all()) and again,
+                    "|err| <= (n+1) 2^-24 sum|x| per run of n rows; "
+                    "bit-equal from call to call")
         return compare
 
     # K1: every point of the sequence
@@ -302,14 +328,13 @@ def check_kernels(dev, inp):
                        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
                        "keys and bary bit-equal"))
 
-    # K2 sum, single run: the union's int32 cumsums (ids all zero)
-    zeros = torch.zeros(q, dtype=torch.int32, device=dev)
+    # K2 sum, one run without ids: the union's int32 cumsums (x in, out)
     heads = spn.head_vf.to(torch.int32)[:, None].contiguous()
-    case("sorted_segment_scan", f"sum int32 single run Q={q} C=1",
-         lambda: ss.sorted_segment_scan(zeros, heads, "sum"),
-         lambda: ss.sorted_segment_scan_plain(zeros, heads, "sum"),
+    case("sorted_segment_scan", f"sum int32 one run, no ids, Q={q} C=1",
+         lambda: ss.sorted_segment_scan(None, heads, "sum"),
+         lambda: ss.sorted_segment_scan_plain(None, heads, "sum"),
          lambda: torch.cumsum(heads, dim=0, dtype=torch.int32),
-         q * 4 * 3, q, exact)
+         q * 4 * 2, q, exact)
     # K2 first: birth propagation over sorted runs
     frame = (spn.so // (inp["p"] * 4)).to(torch.int32)[:, None].contiguous()
     case("sorted_segment_scan", f"first int32 Q={q} C=1",
@@ -326,10 +351,41 @@ def check_kernels(dev, inp):
         dst = link.sorted_dst
         rows = torch.randn(dst.shape[0], c, generator=g, device=dev)
         m = dst.shape[0]
-        case("sorted_segment_scan", f"{use}: sum float32 Q={m} C={c}",
-             lambda: ss.sorted_segment_scan(dst, rows, "sum"),
+
+        def k2():
+            return ss.sorted_segment_scan(dst, rows, "sum")
+        case("sorted_segment_scan", f"{use}: sum float32 Q={m} C={c}", k2,
              lambda: ss.sorted_segment_scan_plain(dst, rows, "sum"), None,
-             m * 4 + 2 * m * c * 4, m * c, summed(dst, rows))
+             m * 4 + 2 * m * c * 4, m * c, summed(dst, rows, k2))
+    # K2 edge cases of the look-back: one run over every row (with ids, so
+    # each tile waits on the one before it), the largest float32 input as
+    # one run, fewer rows than one tile, a ragged last tile
+    zeros = torch.zeros(q, dtype=torch.int32, device=dev)
+    case("sorted_segment_scan", f"sum int32 one run, zero ids, Q={q} C=1",
+         lambda: ss.sorted_segment_scan(zeros, heads, "sum"),
+         lambda: ss.sorted_segment_scan_plain(zeros, heads, "sum"),
+         lambda: torch.cumsum(heads, dim=0, dtype=torch.int32),
+         q * 4 * 3, q, exact)
+    m = link0.sorted_dst.shape[0]
+    one = zeros[:m]
+    big = torch.randn(m, 128, generator=g, device=dev)
+
+    def k2_one():
+        return ss.sorted_segment_scan(one, big, "sum")
+    case("sorted_segment_scan", f"sum float32 one run Q={m} C=128", k2_one,
+         lambda: ss.sorted_segment_scan_plain(one, big, "sum"),
+         lambda: torch.cumsum(big, dim=0),
+         m * 4 + 2 * m * 128 * 4, m * 128, summed(one, big, k2_one))
+    for m, c in ((100, 1), (100, 128), (4096 * 3 + 17, 1), (128 * 9 + 5, 128),
+                 (256 * 5 + 3, 64)):
+        ids = ids_vf[:m].contiguous()
+        small = torch.randn(m, c, generator=g, device=dev)
+
+        def k2_edge():
+            return ss.sorted_segment_scan(ids, small, "sum")
+        case("sorted_segment_scan", f"edge: sum float32 Q={m} C={c}",
+             k2_edge, lambda: ss.sorted_segment_scan_plain(ids, small, "sum"),
+             None, m * 4 + 2 * m * c * 4, m * c, summed(ids, small, k2_edge))
 
     # K3: per-(vertex, frame) position sums at the bucket tails
     n_runs = int(ids_vf[-1]) + 1
@@ -340,13 +396,27 @@ def check_kernels(dev, inp):
     # the rows the function must read: those of runs that end at a tail
     run_ids, run_len = torch.unique_consecutive(ids_vf, return_counts=True)
     covered = int(run_len[torch.isin(run_ids, ids_vf[tails])].sum())
-    case("seg_sum_tails", f"Q={q} C=4 tails={b}",
-         lambda: ss.seg_sum_tails(ids_vf, x4, tails),
+
+    def k3():
+        return ss.seg_sum_tails(ids_vf, x4, tails)
+    case("seg_sum_tails", f"Q={q} C=4 tails={b}", k3,
          lambda: ss.seg_sum_tails_plain(ids_vf, x4, tails),
          lambda: torch.zeros(n_runs, 4, device=dev).index_add_(
              0, ids_vf.long(), x4),
          covered * (4 + 16) + b * 8 + b * 16, covered * 4,
-         summed(ids_vf, x4, tails))
+         summed(ids_vf, x4, k3, tails))
+    # the contract's other tails: shuffled, repeated, mid-run, out of range
+    odd = torch.cat([tails[torch.randperm(b, generator=g, device=dev)],
+                     tails[:1000], tails[:1000] - 1,
+                     torch.tensor([-1, q, 10 * q, 0, q - 1], device=dev)])
+    bo = odd.shape[0]
+
+    def k3_odd():
+        return ss.seg_sum_tails(ids_vf, x4, odd)
+    case("seg_sum_tails", f"odd tails: Q={q} C=4 tails={bo}", k3_odd,
+         lambda: ss.seg_sum_tails_plain(ids_vf, x4, odd), None,
+         q * (4 + 16) + bo * 8 + bo * 16, q * 4,
+         summed(ids_vf, x4, k3_odd, odd))
 
     # K4: the batched pointnet's packed (bf16 | u16 bary) running max
     bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (q, 64), generator=g,
@@ -504,18 +574,21 @@ def _busy_share(events, wall_us):
 
 
 def hand_written(kernel_name: str):
-    """Which of K1-K5 a device kernel name belongs to, or None.  K2 and K4
-    share the scan templates of ``seg_scan.cuh``; K4 is mode 4."""
+    """Which of K1-K5 a device kernel name belongs to, or None.  K2 is
+    ``seg_scan_lookback``; K3 its ``seg_sum_tails_scan`` and
+    ``seg_sum_tails_gather``; K4 the hierarchical ``seg_scan_local`` and
+    ``seg_scan_fixup``.  The memsets of K2's and K3's tile states carry no
+    kernel name and are not counted here."""
     if "simplex_kernel" in kernel_name:
         return "fused_simplex_pack"
     if "seg_max_window_kernel" in kernel_name:
         return "sorted_segment_max_window"
-    if "seg_sum_tails_kernel" in kernel_name:
+    if "seg_sum_tails_" in kernel_name:
         return "seg_sum_tails"
-    m = re.search(r"seg_scan_(?:local|fixup)<[^>]*?(\d+)>", kernel_name)
-    if m:
-        return ("sorted_segment_max_u32" if m.group(1) == "4"
-                else "sorted_segment_scan")
+    if "seg_scan_lookback" in kernel_name:
+        return "sorted_segment_scan"
+    if re.search(r"seg_scan_(?:local|fixup)<", kernel_name):
+        return "sorted_segment_max_u32"
     return None
 
 
@@ -562,6 +635,9 @@ def device_summary(events, wall_us, n: int, per: str) -> dict:
         f"wall_ms_per_{per}": wall_us / n / 1e3,
         f"device_ms_per_{per}": dev_us / n / 1e3,
         f"device_launches_per_{per}": len(events) / n,
+        # the memsets among them (K2's and K3's tile states, and any other)
+        f"memsets_per_{per}": sum(v[1] for k, v in by_name.items()
+                                  if k.startswith("Memset")) / n,
         "device_busy_share": _busy_share(events, wall_us),
         "hand_written": {k: {f"device_ms_per_{per}": v[0] / n / 1e3,
                              f"device_launches_per_{per}": v[1] / n}

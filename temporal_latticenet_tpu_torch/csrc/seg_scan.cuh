@@ -1,5 +1,6 @@
-// Segmented inclusive scan over contiguous runs of rows, shared by K2
-// (seg_scan.cu: sum / max / first) and K4 (seg_max.cu: uint32 max).
+// The combine operators of every segmented scan (Op<M>), and the
+// hierarchical scan templates below, which only K4 (seg_max.cu: uint32 max)
+// runs; K2 and K3 take the single-pass scan of seg_scan_lookback.cuh.
 //
 // Rows are (Q, C) row-major; runs are given by nondecreasing int32 run ids,
 // equal id == same run.  The TPU kernels carried the running value across

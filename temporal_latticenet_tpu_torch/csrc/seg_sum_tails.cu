@@ -9,44 +9,89 @@
 //
 // Bound on the H100: bytes.  The function reads x, the run ids and the tails
 // once and writes (B, C): about 46 MB at the flagship, 14 us at 3.35 TB/s.
-// Design: the chunk-scan intermediate was a TPU layout device; here one
-// thread per (tail, channel) walks its run backwards from the tail row while
-// the run id matches and sums the rows.  Runs are short (~10 rows at the
-// flagship), neighbouring threads read neighbouring channels of one row,
-// and only rows inside runs that end at a requested tail are touched.
-#include "common.cuh"
+// Design: K2's single-pass float32 sum (seg_scan_lookback.cuh; one float4
+// and one id per row at C = 4), writing only the rows that end a run into a
+// (Q, C) scratch that is never cleared, then a gather of the tails.  A tail
+// that ends its run reads the scratch; one that sits mid-run (the contract
+// allows it; the main path has none) sums its run back to the head itself.
+// The tails may come in any order and repeat; those outside [0, Q) give 0.
+#include "seg_scan_lookback.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(256)
-seg_sum_tails_kernel(const int* __restrict__ ids, const float* __restrict__ x,
-                     const int64_t* __restrict__ tails, int64_t q, int c,
-                     int64_t b, float* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= b * c) return;
-  const int64_t bi = i / c;
-  const int ch = static_cast<int>(i - bi * c);
-  const int64_t t = tails[bi];
-  float s = 0.0f;
-  if (t >= 0 && t < q) {
-    const int id = ids[t];
-    for (int64_t r = t; r >= 0 && ids[r] == id; --r) s += x[r * c + ch];
-  }
-  out[i] = s;
+template <int N>
+__global__ void __launch_bounds__(tln::lb::kThreads, 2)
+seg_sum_tails_scan(const int* ids, const float* x, float* ends,
+                   tln::lb::u64* state, float* desc, int64_t q, int c, int w,
+                   int ntiles) {
+  tln::lb::scan_tile<tln::kSumF32, N, true, false>(ids, x, ends, state, desc,
+                                                   q, c, w, ntiles);
 }
 
-}  // namespace
+template <int N>
+__global__ void __launch_bounds__(256)
+seg_sum_tails_gather(const int* __restrict__ ids, const float* __restrict__ x,
+                     const float* __restrict__ ends,
+                     const int64_t* __restrict__ tails, int64_t q, int c,
+                     int64_t b, float* __restrict__ out) {
+  // one thread per N channels of one tail
+  using V = tln::lb::Vec<float, N>;
+  const int lanes = c / N;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= b * lanes) return;
+  const int64_t bi = i / lanes;
+  const int ch = static_cast<int>(i - bi * lanes) * N;
+  const int64_t t = tails[bi];
+  V v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) v.v[k] = 0.0f;
+  if (t >= 0 && t < q) {
+    const int id = __ldg(ids + t);
+    if (t + 1 == q || __ldg(ids + t + 1) != id) {
+      v = tln::lb::ld<float, N>(ends + t * c + ch);
+    } else {
+      for (int64_t r = t; r >= 0 && __ldg(ids + r) == id; --r)
+        v = tln::lb::comb<tln::kSumF32, N>(
+            v, tln::lb::ld<float, N>(x + r * c + ch));
+    }
+  }
+  tln::lb::st<float, N>(out + bi * c + ch, v);
+}
 
+template <int N>
+static int launch(const void* ids, const void* x, const void* tails,
+                  int64_t q, int c, int64_t b, void* ends, void* state,
+                  void* desc, int w, int ntiles, int ncb, void* out,
+                  void* stream) {
+  const int* i = static_cast<const int*>(ids);
+  const float* xf = static_cast<const float*>(x);
+  float* e = static_cast<float*>(ends);
+  int err = tln::lb::launch(
+      seg_sum_tails_scan<N>, state,
+      tln::lb::state_bytes(false, ntiles, ncb), ntiles, ncb,
+      w == 1 ? tln::lb::stage_bytes<N>() : 0, stream,
+      i, xf, e, static_cast<tln::lb::u64*>(state), static_cast<float*>(desc),
+      q, c, w, ntiles);
+  if (err != 0) return err;
+  const int64_t n = b * (c / N);
+  if (n <= 0) return 0;
+  const int64_t blocks = (n + 255) / 256;
+  seg_sum_tails_gather<N><<<static_cast<unsigned>(blocks), 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      i, xf, e, static_cast<const int64_t*>(tails), q, c, b,
+      static_cast<float*>(out));
+  return tln_last_error();
+}
+
+// ends: (Q, C) float32 scratch (only run-end rows are written); state and
+// desc as for tln_seg_scan.  vw = 4 needs C % 4 == 0 and 16-byte aligned x,
+// ends and out.
 TLN_API int tln_seg_sum_tails(const void* ids, const void* x,
                               const void* tails, int64_t q, int c, int64_t b,
-                              void* out, void* stream) {
-  const int64_t n = b * c;
-  if (n <= 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  seg_sum_tails_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ids), static_cast<const float*>(x),
-      static_cast<const int64_t*>(tails), q, c, b, static_cast<float*>(out));
-  return tln_last_error();
+                              void* ends, void* state, void* desc, int vw,
+                              int w, int ntiles, int ncb, void* out,
+                              void* stream) {
+  if (vw == 4)
+    return launch<4>(ids, x, tails, q, c, b, ends, state, desc, w, ntiles,
+                     ncb, out, stream);
+  return launch<1>(ids, x, tails, q, c, b, ends, state, desc, w, ntiles, ncb,
+                   out, stream);
 }

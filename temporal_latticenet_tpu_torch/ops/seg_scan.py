@@ -8,10 +8,14 @@ it) for CPU tensors; there is no other path.
 * K2 :func:`sorted_segment_scan` (``csrc/seg_scan.cu``) replaces the Pallas
   kernel ``ops/pallas_scan.py:_seg_scan_kernel_lanes`` (wrapper
   ``sorted_segment_scan``): inclusive segmented ``sum`` (float32 or int32),
-  ``max`` (int32) or ``first`` (the run head's value copied forward).
+  ``max`` (int32) or ``first`` (the run head's value copied forward);
+  ``sum`` with ``head_count=None`` is a cumsum over every row.  A single
+  pass with decoupled look-back: a memset of the tile state and one kernel
+  per call.
 * K3 :func:`seg_sum_tails` (``csrc/seg_sum_tails.cu``) replaces
   ``_seg_scan_kernel_laneonly`` as composed by ``seg_sum_tails``: exact
-  per-run totals at the given tail rows.
+  per-run totals at the given tail rows (K2's float32 sum, writing only the
+  rows that end a run, then a gather of the tails).
 * K4 :func:`sorted_segment_max_u32` (``csrc/seg_max.cu``) replaces
   ``_seg_max_kernel`` (wrappers ``sorted_segment_max_i32``/``_u32``): the
   inclusive segmented running max of uint32 bits held in int32.  The TPU
@@ -21,13 +25,19 @@ it) for CPU tensors; there is no other path.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _cuda
 
 INT_MIN = -0x80000000
+# K4's hierarchical scan (seg_scan.cuh)
 _THREADS = 256
 _ROWS_PER_THREAD = 4
+# K2's and K3's single-pass scan (seg_scan_lookback.cuh: kThreads, kStrip)
+_LB_THREADS = 256
+_LB_STRIP = 16
 # the largest window K5 takes: its shared-memory halo is 2 * window - 1 rows
 MAX_WINDOW = 16
 
@@ -73,6 +83,9 @@ def _max_scan(head_count, x):
 
 
 def sorted_segment_scan_plain(head_count, x, mode):
+    if head_count is None and mode == "sum":      # one run: a cumsum
+        acc_t = torch.float64 if x.dtype.is_floating_point else torch.int64
+        return torch.cumsum(x.to(acc_t), dim=0).to(x.dtype)
     if mode == "first":
         return x[_head_positions(head_count)]
     if mode == "sum":
@@ -115,23 +128,62 @@ def sorted_segment_max_window_plain(head_count, x, window=None):
 # CUDA launches
 # ---------------------------------------------------------------------------
 
-def _check(head_count, x, dtypes, what):
+def _check(head_count, x, dtypes, what, one_run_ok=False):
     if x.dim() != 2:
         raise ValueError(f"{what}: x must be (Q, C), got {tuple(x.shape)}")
-    if head_count.shape != (x.shape[0],) or head_count.dtype != torch.int32:
-        raise ValueError(f"{what}: head_count must be (Q,) int32")
     if x.dtype not in dtypes:
         raise ValueError(f"{what}: unsupported dtype {x.dtype}")
-    if head_count.device != x.device:
-        raise ValueError(f"{what}: tensors on different devices")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.is_cuda and not (x.is_contiguous() and head_count.is_contiguous()):
+    if x.is_cuda and not x.is_contiguous():
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if head_count is None and one_run_ok:
+        return
+    if head_count is None or head_count.shape != (x.shape[0],) \
+            or head_count.dtype != torch.int32:
+        raise ValueError(f"{what}: head_count must be (Q,) int32")
+    if head_count.device != x.device:
+        raise ValueError(f"{what}: tensors on different devices")
+    if x.is_cuda and not head_count.is_contiguous():
         raise ValueError(f"{what}: tensors must be contiguous")
 
 
+class _Plan(NamedTuple):
+    """Tiles of the single-pass scan (``csrc/seg_scan_lookback.cuh``)."""
+    vw: int        # channels per vector: 4 (16-byte loads) or 1
+    w: int         # threads that cover one row's vectors
+    ncb: int       # channel blocks (grid y), each a scan of its own
+    rows: int      # rows per tile
+    ntiles: int    # tiles per channel block (grid x)
+
+    @property
+    def state_words(self) -> int:
+        """int64 words of the tile state (``state_bytes`` in the header;
+        cleared by each call): the int32 tile counters, then a 64-bit word
+        per tile (C = 1) or an int32 status per (channel block, tile)."""
+        return (self.ncb + 1) // 2 + self.ncb * self.ntiles
+
+
+def _lookback_plan(q: int, c: int, vec: bool) -> _Plan:
+    """``vec``: C % 4 == 0 and x 16-byte aligned."""
+    vw = 4 if vec else 1
+    lanes = -(-c // vw)
+    w = min(1 << (lanes - 1).bit_length(), _LB_THREADS)
+    rows = (_LB_THREADS // w) * _LB_STRIP
+    return _Plan(vw, w, -(-lanes // w), rows, -(-q // rows))
+
+
+def _lookback_scratch(plan: _Plan, x: torch.Tensor):
+    """The tile state and the (2, ntiles, C) descriptor values (aggregates,
+    inclusive prefixes), uninitialised: the launcher clears the state."""
+    state = torch.empty(plan.state_words, dtype=torch.int64, device=x.device)
+    desc = torch.empty((2, plan.ntiles, x.shape[1]), dtype=x.dtype,
+                       device=x.device)
+    return state, desc
+
+
 def _scan_cuda(lib, prefix, ids, x, mode_code):
-    """Block-local scan, recursive scan of the block carries, fix-up."""
+    """K4: block-local scan, recursive scan of the block carries, fix-up."""
     q, c = x.shape
     out = torch.empty_like(x)
     if q == 0 or c == 0:
@@ -166,15 +218,17 @@ def _scan_cuda(lib, prefix, ids, x, mode_code):
 # public wrappers
 # ---------------------------------------------------------------------------
 
-def sorted_segment_scan(head_count: torch.Tensor, x: torch.Tensor,
+def sorted_segment_scan(head_count, x: torch.Tensor,
                         mode: str) -> torch.Tensor:
     """K2: inclusive segmented scan over contiguous runs.
 
     Args:
-      head_count: (Q,) int32 nondecreasing run ids.
+      head_count: (Q,) int32 nondecreasing run ids; for ``sum`` also None,
+        one run over every row (no ids are read).
       x: (Q, C); float32 or int32 for ``sum``, int32 for ``max``, any 32-bit
         type for ``first``.
-    Returns (Q, C) of x's dtype.
+    Returns (Q, C) of x's dtype.  On the card, float32 sums are bit-equal
+    from call to call.
     """
     if mode == "sum":
         dtypes = (torch.float32, torch.int32)
@@ -184,12 +238,27 @@ def sorted_segment_scan(head_count: torch.Tensor, x: torch.Tensor,
         dtypes = (torch.float32, torch.int32)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    _check(head_count, x, dtypes, "sorted_segment_scan")
+    _check(head_count, x, dtypes, "sorted_segment_scan",
+           one_run_ok=mode == "sum")
     if x.device.type == "cpu":
         return sorted_segment_scan_plain(head_count, x, mode)
     code = _MODES["first"] if mode == "first" else _MODES[
         f"{mode}_{'f32' if x.dtype == torch.float32 else 'i32'}"]
-    out = _scan_cuda("seg_scan", "tln_seg_scan", head_count, x, code)
+    q, c = x.shape
+    out = torch.empty_like(x)
+    if q == 0 or c == 0:
+        return out
+    plan = _lookback_plan(q, c, c % 4 == 0 and x.data_ptr() % 16 == 0)
+    state, desc = _lookback_scratch(plan, x)
+    fn = _cuda.function("seg_scan", "tln_seg_scan",
+                        [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
+                         _cuda.I64, _cuda.I32, _cuda.I32, _cuda.I32,
+                         _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P])
+    err = fn(None if head_count is None else head_count.data_ptr(),
+             x.data_ptr(), out.data_ptr(), state.data_ptr(), desc.data_ptr(),
+             q, c, code, plan.vw, plan.w, plan.ntiles, plan.ncb,
+             _cuda.stream_ptr())
+    _cuda.check("seg_scan", err, "sorted_segment_scan")
     _cuda.LAUNCHES["sorted_segment_scan"] += 1
     return out
 
@@ -216,14 +285,19 @@ def seg_sum_tails(head_count: torch.Tensor, x: torch.Tensor,
         raise ValueError("seg_sum_tails: tails must be contiguous")
     q, c = x.shape
     b = tails.shape[0]
+    if q == 0 or b == 0 or c == 0:
+        return torch.zeros((b, c), dtype=torch.float32, device=x.device)
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    if b == 0 or c == 0:
-        return out
+    plan = _lookback_plan(q, c, c % 4 == 0 and x.data_ptr() % 16 == 0)
+    ends = torch.empty_like(x)          # only run-end rows are written
+    state, desc = _lookback_scratch(plan, x)
     fn = _cuda.function("seg_sum_tails", "tln_seg_sum_tails",
                         [_cuda.P, _cuda.P, _cuda.P, _cuda.I64, _cuda.I32,
-                         _cuda.I64, _cuda.P, _cuda.P])
+                         _cuda.I64, _cuda.P, _cuda.P, _cuda.P, _cuda.I32,
+                         _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P, _cuda.P])
     err = fn(head_count.data_ptr(), x.data_ptr(), tails.data_ptr(), q, c, b,
-             out.data_ptr(), _cuda.stream_ptr())
+             ends.data_ptr(), state.data_ptr(), desc.data_ptr(), plan.vw,
+             plan.w, plan.ntiles, plan.ncb, out.data_ptr(), _cuda.stream_ptr())
     _cuda.check("seg_sum_tails", err, "seg_sum_tails")
     _cuda.LAUNCHES["seg_sum_tails"] += 1
     return out

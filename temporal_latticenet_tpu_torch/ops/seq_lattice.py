@@ -91,10 +91,9 @@ def _shifted_ne(x: torch.Tensor) -> torch.Tensor:
 
 
 def _blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum of a (Q,) int32 vector: one K2 ``sum`` scan with
-    all-zero run ids (a single run)."""
-    ids = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
-    return sorted_segment_scan(ids, x.to(torch.int32)[:, None].contiguous(),
+    """Inclusive cumsum of a (Q,) int32 vector: one K2 ``sum`` scan over a
+    single run (no run ids)."""
+    return sorted_segment_scan(None, x.to(torch.int32)[:, None].contiguous(),
                                "sum")[:, 0]
 
 

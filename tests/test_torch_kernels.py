@@ -23,6 +23,7 @@ from temporal_latticenet_tpu_torch.ops import _cuda
 from temporal_latticenet_tpu_torch.ops import fused_simplex as fs
 from temporal_latticenet_tpu_torch.ops import seg_scan as ss
 from temporal_latticenet_tpu_torch.ops import segment as tseg
+from temporal_latticenet_tpu_torch.ops import seq_lattice as tsl
 
 
 def _runs(rng, q, p=0.05):
@@ -107,6 +108,50 @@ def test_k2_single_run_cumsum_is_exact():
     np.testing.assert_array_equal(got.numpy()[:, 0], np.cumsum(x[:, 0]))
 
 
+def test_k2_one_run_form_is_cumsum():
+    """``head_count=None`` (one run, no ids) equals torch.cumsum, the
+    zero-ids form and the JAX package's ``_blocked_cumsum``."""
+    # imported here (it needs flax), so that the card test below also runs
+    # where only jax is installed
+    from temporal_latticenet_tpu.ops import seq_lattice as jsl
+    rng = np.random.default_rng(4)
+    x = rng.integers(-5, 100, 5001).astype(np.int32)
+    got = ss.sorted_segment_scan(None, _t(x[:, None]), "sum")[:, 0]
+    zero_ids = ss.sorted_segment_scan(torch.zeros(5001, dtype=torch.int32),
+                                      _t(x[:, None]), "sum")[:, 0]
+    assert got.dtype == torch.int32
+    assert torch.equal(got, torch.cumsum(_t(x), 0, dtype=torch.int32))
+    assert torch.equal(got, zero_ids)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jsl._blocked_cumsum(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        tsl._blocked_cumsum(_t(x)).numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("q,c,vec,want", [
+    (2_097_152, 1, False, (1, 1, 1, 4096, 512)),      # one-run cumsum, first
+    (2_097_152, 4, True, (4, 1, 1, 4096, 512)),       # K3's float4 rows
+    (163_840, 64, True, (4, 16, 1, 256, 640)),        # coarsen splat
+    (81_920, 128, True, (4, 32, 1, 128, 640)),
+    (163_840, 128, True, (4, 32, 1, 128, 1280)),      # slice backward
+    (100, 3, False, (1, 4, 1, 1024, 1)),              # below one tile
+    (5000, 2048, True, (4, 256, 2, 16, 313)),         # channel blocks
+])
+def test_lookback_plan(q, c, vec, want):
+    """The wrapper's tile plan: every row and channel covered once, at least
+    128 rows per tile at the main path's C % 4 == 0 shapes, and a tile state
+    that holds the counters and a 64-bit word per tile (C = 1) or an int32
+    status per (channel block, tile)."""
+    plan = ss._lookback_plan(q, c, vec)
+    assert tuple(plan) == want
+    assert plan.ntiles * plan.rows >= q > (plan.ntiles - 1) * plan.rows
+    assert plan.ncb * plan.w * plan.vw >= c
+    assert plan.rows * plan.w == ss._LB_THREADS * ss._LB_STRIP
+    header = 8 * ((plan.ncb + 1) // 2)
+    tiles = 8 * plan.ntiles if c == 1 else 4 * plan.ncb * plan.ntiles
+    assert 8 * plan.state_words >= header + tiles
+
+
 def test_k2_rejects_bad_input():
     hc = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -115,6 +160,9 @@ def test_k2_rejects_bad_input():
         ss.sorted_segment_scan(hc.long(), torch.zeros(8, 2), "sum")
     with pytest.raises(ValueError):
         ss.sorted_segment_scan(hc, torch.zeros(8, 2), "mean")
+    with pytest.raises(ValueError):                               # one run:
+        ss.sorted_segment_scan(None, torch.zeros(8, 2, dtype=torch.int32),
+                               "max")                             # sum only
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +343,20 @@ def test_k5_rejects_bad_window():
 # the CUDA kernels against their plain versions (on the card only)
 # ---------------------------------------------------------------------------
 
+def _within_sum_bound(ids, x, got, want):
+    """Float32 summation in any order: |err| <= (n + 1) 2^-24 sum|x| per
+    run of n rows (the plain version sums in float64 and rounds once)."""
+    if ids is None:
+        n = torch.full((x.shape[0],), x.shape[0], device=x.device)
+    else:
+        _, inv, cnt = torch.unique_consecutive(ids, return_inverse=True,
+                                               return_counts=True)
+        n = cnt[inv]
+    absum = ss.sorted_segment_scan_plain(ids, x.abs(), "sum").double()
+    tol = (n.double()[:, None] + 1) * 2.0 ** -24 * absum
+    return bool(((got.double() - want.double()).abs() <= tol).all())
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain(cuda_device):
     g = torch.Generator().manual_seed(0)
@@ -307,22 +369,47 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert torch.equal(pk, pk2) and torch.equal(b, b2)
     q = 300007
     hc = torch.cumsum((torch.rand(q, generator=g) < 0.1).int(), 0).int().to(dev)
-    for c, mode, dt in [(1, "sum", torch.int32), (1, "first", torch.int32),
-                        (64, "sum", torch.float32), (128, "sum", torch.float32),
-                        (4, "max", torch.int32), (4, "first", torch.float32)]:
-        x = (torch.randn(q, c, generator=g) if dt == torch.float32 else
-             torch.randint(-999, 999, (q, c), generator=g, dtype=dt)).to(dev)
-        got = ss.sorted_segment_scan(hc, x, mode)
-        want = ss.sorted_segment_scan_plain(hc, x, mode)
+    one = torch.zeros(q, dtype=torch.int32, device=dev)
+    n_scans = 0
+    # (run ids, rows, C, mode, dtype): short runs, one run with and without
+    # ids (the longest look-back), below one tile, a ragged last tile, and a
+    # C that takes neither the row-vector nor the channel-vector loads
+    for ids, rows, c, mode, dt in [
+            (hc, q, 1, "sum", torch.int32), (hc, q, 1, "first", torch.int32),
+            (hc, q, 64, "sum", torch.float32),
+            (hc, q, 128, "sum", torch.float32),
+            (hc, q, 4, "max", torch.int32), (hc, q, 4, "first", torch.float32),
+            (None, q, 1, "sum", torch.int32), (one, q, 1, "sum", torch.int32),
+            (one, q, 128, "sum", torch.float32),
+            (None, q, 4, "sum", torch.int32),
+            (hc, 100, 1, "sum", torch.int32),
+            (hc, 100, 64, "sum", torch.float32),
+            (hc, 4096 + 17, 1, "first", torch.int32),
+            (hc, 128 * 7 + 3, 128, "sum", torch.float32),
+            (hc, 5003, 3, "sum", torch.float32)]:
+        ids = None if ids is None else ids[:rows].contiguous()
+        x = (torch.randn(rows, c, generator=g) if dt == torch.float32 else
+             torch.randint(-999, 999, (rows, c), generator=g, dtype=dt)
+             ).to(dev)
+        got = ss.sorted_segment_scan(ids, x, mode)
+        want = ss.sorted_segment_scan_plain(ids, x, mode)
+        n_scans += 1
         if dt == torch.float32 and mode == "sum":
-            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            assert _within_sum_bound(ids, x, got, want)
+            # bit-equal from call to call
+            assert torch.equal(got, ss.sorted_segment_scan(ids, x, mode))
+            n_scans += 1
         else:
             assert torch.equal(got, want)
     x = torch.randn(q, 4, generator=g).to(dev)
-    tails = torch.randint(0, q, (5000,), generator=g).to(dev)
-    torch.testing.assert_close(ss.seg_sum_tails(hc, x, tails),
-                               ss.seg_sum_tails_plain(hc, x, tails),
+    # in any order, repeated, mid-run and out of range
+    tails = torch.cat([torch.randint(0, q, (5000,), generator=g),
+                       torch.tensor([5, 5, 5, q - 1, q - 1, -1, q, 10 * q])
+                       ]).to(dev)
+    got = ss.seg_sum_tails(hc, x, tails)
+    torch.testing.assert_close(got, ss.seg_sum_tails_plain(hc, x, tails),
                                rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, ss.seg_sum_tails(hc, x, tails))
     xi = torch.randint(-2**31, 2**31 - 1, (q, 64), generator=g,
                        dtype=torch.int64).to(torch.int32).to(dev)
     assert torch.equal(ss.sorted_segment_max_u32(hc, xi),
@@ -333,8 +420,9 @@ def test_cuda_kernels_match_plain(cuda_device):
                            ss.sorted_segment_max_window_plain(hc, xw, window))
     after = _cuda.launch_counts()
     assert after["fused_simplex_pack"] == before["fused_simplex_pack"] + 1
-    assert after["sorted_segment_scan"] == before["sorted_segment_scan"] + 6
-    assert after["seg_sum_tails"] == before["seg_sum_tails"] + 1
+    assert after["sorted_segment_scan"] == \
+        before["sorted_segment_scan"] + n_scans
+    assert after["seg_sum_tails"] == before["seg_sum_tails"] + 2
     assert after["sorted_segment_max_u32"] == \
         before["sorted_segment_max_u32"] + 1
     assert after["sorted_segment_max_window"] == \
