@@ -20,8 +20,12 @@ Phases, in order; any failure exits non-zero without the final line:
    the finefy slices' backward shapes, then at the look-back's edge cases
    (one run over every row, fewer rows than a tile, a ragged last tile);
    K3 also takes shuffled, repeated, mid-run and out-of-range tails; every
-   float32 sum must equal a second call bit for bit; the two-level tail max
-   that K5 (the windowed max) feeds must also equal K4's full-scan tails;
+   float32 sum must equal a second call bit for bit; K4 (on the same
+   look-back) runs at the forward's shape, beside K2's int32 max on the
+   sign-flipped bits (K4's function on K2's fenced descriptors), then at
+   the same edge cases, at C = 3 and at the training step's summary-scan
+   shape; the two-level tail max that K5 (the windowed max) feeds must also
+   equal K4's full-scan tails;
 4. the flagship 4-frame offline sequence forward at bench geometry (131,072
    padded points per frame, capacities 49152/24576/12288, trims 36864 and
    40960, sigma 0.6, seeded random weights), with the launch count of every
@@ -293,6 +297,7 @@ def check_kernels(dev, inp):
         if not ok:
             raise AssertionError(f"{name} {label} disagrees with its plain "
                                  f"version: max_abs_err {err} ({tol})")
+        return rec
 
     def exact(got, want):
         same = torch.equal(got, want)
@@ -423,13 +428,55 @@ def check_kernels(dev, inp):
                          device=dev, dtype=torch.int64).to(torch.int32)
     flipped = bits ^ torch.tensor(-2 ** 31, dtype=torch.int32, device=dev)
     idx64 = ids_vf.long()[:, None].expand(q, 64)
-    case("sorted_segment_max_u32", f"Q={q} C=64",
-         lambda: ss.sorted_segment_max_u32(ids_vf, bits),
-         lambda: ss.sorted_segment_max_u32_plain(ids_vf, bits),
-         lambda: torch.full((n_runs, 64), -2 ** 31, dtype=torch.int32,
-                            device=dev).scatter_reduce_(
-             0, idx64, flipped, "amax"),
+    rec = case("sorted_segment_max_u32", f"Q={q} C=64",
+               lambda: ss.sorted_segment_max_u32(ids_vf, bits),
+               lambda: ss.sorted_segment_max_u32_plain(ids_vf, bits),
+               lambda: torch.full((n_runs, 64), -2 ** 31, dtype=torch.int32,
+                                  device=dev).scatter_reduce_(
+                   0, idx64, flipped, "amax"),
+               q * 4 + 2 * q * 64 * 4, q * 64, exact)
+    # the ids' runs: a tile's look-back stops at its predecessor unless a
+    # run is longer than a tile (256 rows)
+    rec["rows_per_run"] = q / n_runs
+    rec["longest_run"] = int(run_len.max())
+    rec["rows_in_runs_over_256"] = int(run_len[run_len > 256].sum())
+    # a yardstick, not the same function: copying the values alone
+    copy_out = torch.empty_like(bits)
+    rec["copy_ms"] = device_ms(lambda: copy_out.copy_(bits), KERNEL_ITERS)[0]
+    log(f"[kernel] K4's ids: {rec['rows_per_run']} rows per run, the "
+        f"longest {rec['longest_run']}, {rec['rows_in_runs_over_256']} rows "
+        f"in runs over 256; a copy of its values: {rec['copy_ms']} device ms")
+    # K4's function on K2's fenced descriptors (values, fence, status): K2's
+    # int32 max on the sign-flipped bits, what K4's channel words are for
+    case("sorted_segment_scan",
+         f"K4's function on K2's protocol: max int32 of the sign-flipped "
+         f"bits, Q={q} C=64",
+         lambda: ss.sorted_segment_scan(ids_vf, flipped, "max"),
+         lambda: ss.sorted_segment_scan_plain(ids_vf, flipped, "max"), None,
          q * 4 + 2 * q * 64 * 4, q * 64, exact)
+    # K4's look-back edge cases: one run over every row (each tile waits on
+    # the ones before it; `torch.cummax` computes the same function), runs
+    # of 16 rows that start at the strips (no tile looks back), fewer rows
+    # than a tile, a ragged last tile, C = 3 (4-byte vectors), and the
+    # training step's summary scan over every 16th row (the packed route)
+    strips = torch.arange(q, device=dev, dtype=torch.int32) // 16
+    for label, ids, x, library in (
+            (f"one run, zero ids, Q={q} C=64", zeros, bits,
+             lambda: torch.cummax(flipped, dim=0)),
+            (f"no look-back: runs of 16 rows at the strips, Q={q} C=64",
+             strips, bits, None),
+            ("Q=100 C=64", ids_vf[:100], bits[:100], None),
+            (f"ragged last tile, Q={256 * 7 + 3} C=64", ids_vf[:256 * 7 + 3],
+             bits[:256 * 7 + 3], None),
+            (f"Q={q} C=3", ids_vf, bits[:, :3], None),
+            (f"summary scan, Q={q // 16} C=64", ids_vf[15::16], bits[15::16],
+             None)):
+        ids, x = ids.contiguous(), x.contiguous()
+        r, c = x.shape
+        case("sorted_segment_max_u32", f"edge: {label}",
+             lambda: ss.sorted_segment_max_u32(ids, x),
+             lambda: ss.sorted_segment_max_u32_plain(ids, x), library,
+             r * 4 + 2 * r * c * 4, r * c, exact)
 
     # K5: the packed route's windowed max on the same rows (window 8: every
     # row covers its last 16 same-run rows), bit-equal to its plain version
@@ -576,9 +623,9 @@ def _busy_share(events, wall_us):
 def hand_written(kernel_name: str):
     """Which of K1-K5 a device kernel name belongs to, or None.  K2 is
     ``seg_scan_lookback``; K3 its ``seg_sum_tails_scan`` and
-    ``seg_sum_tails_gather``; K4 the hierarchical ``seg_scan_local`` and
-    ``seg_scan_fixup``.  The memsets of K2's and K3's tile states carry no
-    kernel name and are not counted here."""
+    ``seg_sum_tails_gather``; K4 ``seg_max_lookback`` (K2, K3 and K4 share
+    the look-back scan, each under a kernel name of its own).  The memsets
+    of their tile states carry no kernel name and are not counted here."""
     if "simplex_kernel" in kernel_name:
         return "fused_simplex_pack"
     if "seg_max_window_kernel" in kernel_name:
@@ -587,7 +634,7 @@ def hand_written(kernel_name: str):
         return "seg_sum_tails"
     if "seg_scan_lookback" in kernel_name:
         return "sorted_segment_scan"
-    if re.search(r"seg_scan_(?:local|fixup)<", kernel_name):
+    if "seg_max_lookback" in kernel_name:
         return "sorted_segment_max_u32"
     return None
 

@@ -1,7 +1,7 @@
 // Single-pass segmented inclusive scan with decoupled look-back (Merrill and
 // Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
-// NVIDIA 2016), written by hand for K2 (seg_scan.cu) and K3
-// (seg_sum_tails.cu).  One kernel per call, after one memset of the tile
+// NVIDIA 2016), written by hand for K2 (seg_scan.cu), K3 (seg_sum_tails.cu)
+// and K4 (seg_max.cu).  One kernel per call, after one memset of the tile
 // state.
 //
 // Rows are (Q, C) row-major; runs are given by nondecreasing int32 run ids
@@ -27,13 +27,18 @@
 //      that run's head, else as an aggregate (status A).  At C = 1 for the
 //      integer modes and "first" (packed) the status and the 32-bit value
 //      share one 64-bit word, written and read whole, so no fence is needed;
-//      otherwise the values are written, fenced, and then the status;
+//      otherwise the values are written, fenced, and then the status.  For
+//      the uint32 max (K4) the values are channel words: one 64-bit (status,
+//      value) word per channel, in the state the memset clears;
 //   5. a tile whose first row continues the previous tile's run looks back
 //      to the nearest P with only A's between (one warp, a tile per lane,
 //      128 tiles per round trip, so a run over every row takes a few round
 //      trips), folds the values forward and publishes its own P.  Packed,
 //      the warp folds the values it read (in any grouping: the results are
-//      exact); otherwise the channels' owners fold left to right;
+//      exact); otherwise the channels' owners fold left to right.  K4 first
+//      reads the predecessor's channel words: when all hold P that is the
+//      prefix (one round trip, no fence); else it looks back as the others
+//      do and folds the channel words;
 //   6. rows before a strip's first head take the carry; with kEnds only the
 //      rows that end a run are written (K3 reads nothing else).
 // Tiles are numbered by an atomic counter in launch order, so every tile a
@@ -44,9 +49,7 @@
 // P_i = (((P_h + A_h+1) + ...) + A_i).  A published P_j is that same fold up
 // to j, so continuing a fold from any P_j gives the same bits as folding from
 // the head tile: float32 sums do not depend on which descriptor was ready.
-//
-// The hierarchical templates of seg_scan.cuh (seg_scan_local/seg_scan_fixup)
-// are K4's alone.
+// The integer modes are exact in any grouping.
 #pragma once
 
 #include <stdint.h>
@@ -179,6 +182,23 @@ __device__ __forceinline__ T word_value(u64 wd) {
   return v;
 }
 
+// K4's descriptors: one packed word (status, value) per channel, N in a row
+template <int N, typename T>
+__device__ __forceinline__ void st_words(u64* p, int status,
+                                         const Vec<T, N>& v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) st_word(p + i, pack(status, v.v[i]));
+}
+
+template <int M, int N>
+__device__ __forceinline__ Vec<typename Op<M>::T, N> ld_words(const u64* p) {
+  Vec<typename Op<M>::T, N> r;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    r.v[i] = word_value<typename Op<M>::T>(ld_word(p + i));
+  return r;
+}
+
 // Staging of a warp's 512 rows when a thread covers a whole row (w = 1):
 // the warp loads them with 16-byte loads contiguous across the warp, and
 // each lane takes its 16 consecutive rows from shared memory.  One pad int4
@@ -291,10 +311,25 @@ inline size_t state_bytes(bool packed, int ntiles, int ncb) {
              (packed ? sizeof(u64) : static_cast<size_t>(ncb) * sizeof(int));
 }
 
-// One block: scans one tile.  state: as state_bytes() lays it out, zero at
-// launch; desc: (2, ntiles, C) descriptor values (aggregates, inclusive
-// prefixes) when not kPacked.  kPacked: C = 1, integer modes and "first".
-// ids == nullptr: one run.
+// K4 (the uint32 max) keeps its descriptors in the state too, so that the
+// launch's memset clears them: after the int32 statuses (rounded up to 8
+// bytes), a packed word (status, value) per (tile, channel), ntiles x C.
+__host__ __device__ inline int64_t channel_words_at(int ntiles, int ncb) {
+  return state_header_words(ncb) +
+         (static_cast<int64_t>(ntiles) * ncb + 1) / 2;
+}
+
+inline size_t channel_word_state_bytes(int ntiles, int ncb, int c) {
+  return static_cast<size_t>(channel_words_at(ntiles, ncb) +
+                             static_cast<int64_t>(ntiles) * c) *
+         sizeof(u64);
+}
+
+// One block: scans one tile.  state: as state_bytes() (K4:
+// channel_word_state_bytes()) lays it out, zero at launch; desc: (2, ntiles,
+// C) descriptor values (aggregates, inclusive prefixes) when neither kPacked
+// nor K4.  kPacked: C = 1, integer modes and "first".  ids == nullptr: one
+// run.
 template <int M, int N, bool kEnds, bool kPacked>
 __device__ __forceinline__ void scan_tile(
     const int* __restrict__ ids, const typename Op<M>::T* __restrict__ x,
@@ -321,6 +356,10 @@ __device__ __forceinline__ void scan_tile(
                 static_cast<int64_t>(blockIdx.y) * ntiles;
   T* agg = desc;
   T* incl = desc + static_cast<int64_t>(ntiles) * c;
+  // K4: a word per (tile, channel), each written and read whole
+  constexpr bool kWords = M == kMaxU32;
+  static_assert(!(kWords && kPacked), "K4's descriptors are channel words");
+  u64* cwords = state + channel_words_at(ntiles, gridDim.y);
 
   if (tid == 0) s_tile = atomicAdd(counter, 1);
   __syncthreads();
@@ -478,7 +517,10 @@ __device__ __forceinline__ void scan_tile(
               pack(tile_head ? kPrefix : kAggregate, tile_val.v[0]));
   } else {
     if (last_strip && ch_ok) {
-      st<T, N>((tile_head ? incl : agg) + dsc, tile_val);
+      if constexpr (kWords)
+        st_words<N>(cwords + dsc, tile_head ? kPrefix : kAggregate, tile_val);
+      else
+        st<T, N>((tile_head ? incl : agg) + dsc, tile_val);
       __threadfence();
     }
     __syncthreads();
@@ -496,33 +538,67 @@ __device__ __forceinline__ void scan_tile(
       }
       __syncthreads();
     } else {
-      if (tid < 32) {
-        const int k = look_back_warp<M, false>(words, status, tile, lane,
-                                               nullptr);
-        if (lane == 0) s_k = k;
-      }
-      __syncthreads();
-      // the left fold in tile order from the P: the same bits whichever P
-      // was found
-      if (tid < w && ch_ok) {
-        const int k = s_k;
-        __threadfence();
-        V acc = ld_cg<T, N>(incl + static_cast<int64_t>(k) * c + ch);
-        int j = k + 1;
-        for (; j + 8 <= tile; j += 8) {
-          V b[8];
+      // K4: the predecessor's channel words, each read whole; when they all
+      // hold P (it held the run's head) that is the prefix, after one round
+      // trip and no fence
+      bool at_p = false;
+      if constexpr (kWords) {
+        bool mine = true;
+        if (tid < w && ch_ok) {
+          const u64* pw = cwords + static_cast<int64_t>(tile - 1) * c + ch;
+          u64 wd[N];
+          bool ready;
+          do {
+            ready = true;
 #pragma unroll
-          for (int u = 0; u < 8; ++u)
-            b[u] = ld_cg<T, N>(agg + static_cast<int64_t>(j + u) * c + ch);
+            for (int i = 0; i < N; ++i) {
+              wd[i] = ld_word(pw + i);
+              ready = ready && word_status(wd[i]) != 0;
+            }
+            if (!ready) __nanosleep(32);
+          } while (!ready);
+          V v;
 #pragma unroll
-          for (int u = 0; u < 8; ++u) acc = comb<M, N>(acc, b[u]);
+          for (int i = 0; i < N; ++i) {
+            mine = mine && word_status(wd[i]) == kPrefix;
+            v.v[i] = word_value<T>(wd[i]);
+          }
+          s_val[cl] = v;
         }
-        for (; j < tile; ++j)
-          acc = comb<M, N>(acc,
-                           ld_cg<T, N>(agg + static_cast<int64_t>(j) * c + ch));
-        s_val[cl] = acc;
+        at_p = __syncthreads_or(mine ? 0 : 1) == 0;
       }
-      __syncthreads();
+      if (!at_p) {
+        if (tid < 32) {
+          const int k = look_back_warp<M, false>(words, status, tile, lane,
+                                                 nullptr);
+          if (lane == 0) s_k = k;
+        }
+        __syncthreads();
+        // the left fold in tile order from the P: the same bits whichever P
+        // was found (K4: of the channel words, exact in any order)
+        if (tid < w && ch_ok) {
+          const int k = s_k;
+          __threadfence();
+          auto published = [&](const T* d, int j) {
+            if constexpr (kWords)
+              return ld_words<M, N>(cwords + static_cast<int64_t>(j) * c + ch);
+            else
+              return ld_cg<T, N>(d + static_cast<int64_t>(j) * c + ch);
+          };
+          V acc = published(incl, k);
+          int j = k + 1;
+          for (; j + 8 <= tile; j += 8) {
+            V b[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) b[u] = published(agg, j + u);
+#pragma unroll
+            for (int u = 0; u < 8; ++u) acc = comb<M, N>(acc, b[u]);
+          }
+          for (; j < tile; ++j) acc = comb<M, N>(acc, published(agg, j));
+          s_val[cl] = acc;
+        }
+        __syncthreads();
+      }
     }
     tp = s_val[cl];
     if (!tile_head) {
@@ -531,7 +607,10 @@ __device__ __forceinline__ void scan_tile(
         if (last_strip) st_word(words + tile, pack(kPrefix, p.v[0]));
       } else {
         if (last_strip && ch_ok) {
-          st<T, N>(incl + dsc, p);
+          if constexpr (kWords)
+            st_words<N>(cwords + dsc, kPrefix, p);
+          else
+            st<T, N>(incl + dsc, p);
           __threadfence();
         }
         __syncthreads();

@@ -18,9 +18,10 @@ it) for CPU tensors; there is no other path.
   rows that end a run, then a gather of the tails).
 * K4 :func:`sorted_segment_max_u32` (``csrc/seg_max.cu``) replaces
   ``_seg_max_kernel`` (wrappers ``sorted_segment_max_i32``/``_u32``): the
-  inclusive segmented running max of uint32 bits held in int32.  The TPU
-  kernel's ``max_window`` is a VMEM workaround; the port always computes
-  the full window (callers read the tails, which are bit-equal).
+  inclusive segmented running max of uint32 bits held in int32, on K2's
+  single-pass scan (a memset and one kernel per call).  The TPU kernel's
+  ``max_window`` is a VMEM workaround; the port always computes the full
+  window (callers read the tails, which are bit-equal).
 """
 
 from __future__ import annotations
@@ -32,16 +33,15 @@ import torch
 from . import _cuda
 
 INT_MIN = -0x80000000
-# K4's hierarchical scan (seg_scan.cuh)
-_THREADS = 256
-_ROWS_PER_THREAD = 4
-# K2's and K3's single-pass scan (seg_scan_lookback.cuh: kThreads, kStrip)
+# K2's, K3's and K4's single-pass scan (seg_scan_lookback.cuh: kThreads,
+# kStrip)
 _LB_THREADS = 256
 _LB_STRIP = 16
 # the largest window K5 takes: its shared-memory halo is 2 * window - 1 rows
 MAX_WINDOW = 16
 
-_MODES = {"sum_f32": 0, "sum_i32": 1, "max_i32": 2, "first": 3, "max_u32": 4}
+# K2's modes (seg_scan.cuh: Mode)
+_MODES = {"sum_f32": 0, "sum_i32": 1, "max_i32": 2, "first": 3}
 
 
 # ---------------------------------------------------------------------------
@@ -182,38 +182,6 @@ def _lookback_scratch(plan: _Plan, x: torch.Tensor):
     return state, desc
 
 
-def _scan_cuda(lib, prefix, ids, x, mode_code):
-    """K4: block-local scan, recursive scan of the block carries, fix-up."""
-    q, c = x.shape
-    out = torch.empty_like(x)
-    if q == 0 or c == 0:
-        return out
-    cb = min(1 << (c - 1).bit_length(), _THREADS)
-    rpb = (_THREADS // cb) * _ROWS_PER_THREAD
-    nb = -(-q // rpb)
-    blk_val = torch.empty((nb, c), dtype=x.dtype, device=x.device)
-    blk_id = torch.empty((nb,), dtype=torch.int32, device=x.device)
-    local = _cuda.function(lib, prefix + "_local",
-                           [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
-                            _cuda.I64, _cuda.I32, _cuda.I32, _cuda.I32,
-                            _cuda.P])
-    err = local(ids.data_ptr(), x.data_ptr(), out.data_ptr(),
-                blk_val.data_ptr(), blk_id.data_ptr(), q, c, cb, mode_code,
-                _cuda.stream_ptr())
-    _cuda.check(lib, err, prefix + "_local")
-    if nb > 1:
-        blk_scan = _scan_cuda(lib, prefix, blk_id, blk_val, mode_code)
-        fixup = _cuda.function(lib, prefix + "_fixup",
-                               [_cuda.P, _cuda.P, _cuda.P, _cuda.P,
-                                _cuda.I64, _cuda.I32, _cuda.I64, _cuda.I32,
-                                _cuda.P])
-        err = fixup(ids.data_ptr(), out.data_ptr(), blk_scan.data_ptr(),
-                    blk_id.data_ptr(), q, c, rpb, mode_code,
-                    _cuda.stream_ptr())
-        _cuda.check(lib, err, prefix + "_fixup")
-    return out
-
-
 # ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
@@ -310,8 +278,22 @@ def sorted_segment_max_u32(head_count: torch.Tensor,
     _check(head_count, x, (torch.int32,), "sorted_segment_max_u32")
     if x.device.type == "cpu":
         return sorted_segment_max_u32_plain(head_count, x)
-    out = _scan_cuda("seg_max", "tln_seg_max", head_count, x,
-                     _MODES["max_u32"])
+    q, c = x.shape
+    out = torch.empty_like(x)
+    if q == 0 or c == 0:
+        return out
+    plan = _lookback_plan(q, c, c % 4 == 0 and x.data_ptr() % 16 == 0)
+    # the tile state, then a 64-bit descriptor word per (tile, channel)
+    state = torch.empty(plan.state_words + plan.ntiles * c,
+                        dtype=torch.int64, device=x.device)
+    fn = _cuda.function("seg_max", "tln_seg_max",
+                        [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I64,
+                         _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
+                         _cuda.I32, _cuda.P])
+    err = fn(head_count.data_ptr(), x.data_ptr(), out.data_ptr(),
+             state.data_ptr(), q, c, plan.vw, plan.w, plan.ntiles, plan.ncb,
+             _cuda.stream_ptr())
+    _cuda.check("seg_max", err, "sorted_segment_max_u32")
     _cuda.LAUNCHES["sorted_segment_max_u32"] += 1
     return out
 
