@@ -51,7 +51,26 @@ Phases, in order; any failure exits non-zero without the final line:
 9. the training step's gradients on the card and on the CPU at the reduced
    geometry, within the bf16 tolerance of the CPU test against the JAX
    package;
-10. one JSON line with the kernels, the device line, and the result line
+10. streaming (frame-at-a-time) serving at full width: the geometry of
+    ``scripts/bench_streaming.py`` (phase 4's data and weights, capacities
+    49152/24576/12288 without trims), through the plain path
+    (``make_streaming_inference``: every frame's structures built in full)
+    and the incremental one (``make_streaming_inference_incremental``,
+    ``max_new`` 8192).  Each path: the launches of every kernel over one
+    counted sequence (K1 once per frame), ``STREAM_SEQS`` sequences with
+    the milliseconds of every frame (host clock, synchronised around each
+    frame), the host syncs inside the frames (``torch.cuda`` sync debug
+    mode), the device time per frame by kernel name and the busy share
+    under ``torch.profiler``, peak memory, and each level's growth per
+    frame.  The incremental path must not overflow, and the final frame's
+    log-probabilities must agree with the offline forward's within the bf16
+    tolerance, equal each other, and equal a second run's;
+11. the streaming path on the card and on the CPU at the reduced geometry
+    without trims: vertex tables, row indices, neighbor tables and corner
+    indices of every frame equal, log-probabilities of both paths within
+    the bf16 tolerance, and two streams stepped together on the card equal
+    to each stream alone;
+12. one JSON line with the kernels, the device line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero when CUDA is unavailable.
@@ -70,6 +89,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -106,6 +127,12 @@ NORM_RTOL = 0.02
 # parameters no forward reads (AFlow's conv weight, kept for the checkpoint
 # schema): their gradient is zero, in the JAX package too
 UNREAD_PARAMS = ("AFLOW.weight",)
+# streaming serving: scripts/bench_streaming.py:42-43 (no trims)
+STREAM_RT = dict(max_points=131072, capacity_level0=49152,
+                 capacity_decay=0.5, min_capacity=8192, sigma=0.6)
+MAX_NEW = 8192         # the incremental path's growth bound per frame
+STREAM_SEQS = 12       # timed sequences per streaming path
+PROFILE_STREAM_SEQS = 2
 
 KERNELS = {
     "fused_simplex_pack": dict(
@@ -908,6 +935,319 @@ def train_card_vs_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 10 and 11: streaming serving
+# ---------------------------------------------------------------------------
+
+def stream_fns(model, rt_kw, incremental: bool, max_new: int = MAX_NEW):
+    from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.train import engine
+
+    cfg, rt = ModelConfig(), RuntimeConfig(**rt_kw)
+    if incremental:
+        return engine.make_streaming_inference_incremental(model, cfg, rt,
+                                                           max_new)
+    return engine.make_streaming_inference(model, cfg, rt)
+
+
+def run_stream(fns, frames, times=None, counts=None):
+    """One sequence through a streaming path (3 functions: plain; 4:
+    incremental, full build on frame 0).  With ``times``, each frame's
+    seconds, synchronised before and after it; with ``counts``, each
+    frame's per-level table counts (device tensors).  Returns (logp, aux,
+    the final carry)."""
+    pos, val, mask = frames
+    n = len(pos)
+    plain = len(fns) == 3
+    carry = (fns[0](),) if plain else fns[0]()
+    out = None
+    for t in range(n):
+        if times is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if t == n - 1:
+            out = fns[-1](pos[t], val[t], mask[t], *carry)
+            carry = (out[2],) if plain else out[2:4]
+        else:
+            fn = fns[1] if plain or t == 0 else fns[2]
+            res = fn(pos[t], val[t], mask[t], *carry)
+            carry = (res,) if plain else res
+        if times is not None:
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if counts is not None:
+            counts.append(torch.stack([tb.count for tb in carry[0].tables]))
+    return out[0], out[-1], carry
+
+
+def host_syncs(fn):
+    """Calls inside ``fn`` that made the host wait for the device (the
+    ``torch.cuda`` sync debug mode's warnings), counted by the innermost
+    line of this repository on the stack that made them."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    where = {}
+
+    def record(message, *args, **kwargs):
+        if "synchroniz" not in str(message):
+            return
+        mine = [f for f in traceback.extract_stack()
+                if f.filename.startswith(root)
+                and not f.filename.endswith("chip_smoke.py")]
+        key = (f"{os.path.relpath(mine[-1].filename, root)}:"
+               f"{mine[-1].lineno}" if mine else "outside the repository")
+        where[key] = where.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return where
+
+
+def check_stream_output(logp, aux, rt_kw, mask_last):
+    from temporal_latticenet_tpu_torch.config import RuntimeConfig
+
+    lp = logp.float()[torch.as_tensor(mask_last, device=logp.device)]
+    if not bool(torch.isfinite(lp).all()):
+        raise AssertionError("non-finite log-probabilities")
+    if float((lp.exp().sum(-1) - 1).abs().max()) > 1e-3:
+        raise AssertionError("log-probabilities do not normalise")
+    caps = torch.tensor(RuntimeConfig(**rt_kw).capacities(2))
+    occ = aux["occupancy"].cpu()
+    if not bool((occ < caps).all()):
+        raise AssertionError(f"occupancy {occ.tolist()} reaches the caps "
+                             f"{caps.tolist()}")
+    return occ.tolist()
+
+
+def logp_stats(a, b, mask_last):
+    """How two final frames' log-probabilities differ on the valid points:
+    the largest difference, its upper quantiles, the points over half the
+    tolerance, and the argmax agreement."""
+    valid = torch.as_tensor(mask_last, device=a.device)
+    x, y = a[valid].float(), b.to(a.device)[valid].float()
+    d = (x - y).abs().amax(-1)
+    q = torch.quantile(d, torch.tensor([0.999, 0.9999], device=d.device))
+    return dict(logp_max_abs_diff=float(d.max()),
+                p999=float(q[0]), p9999=float(q[1]),
+                points_over_half_atol=int((d > LOGP_ATOL / 2).sum()),
+                points=int(d.numel()),
+                argmax_agreement=float((x.argmax(-1) == y.argmax(-1))
+                                       .float().mean()))
+
+
+def agrees(st) -> bool:
+    return st["logp_max_abs_diff"] <= LOGP_ATOL \
+        and st["argmax_agreement"] >= ARGMAX_AGREE
+
+
+def logp_agreement(a, b, mask_last, what):
+    st = logp_stats(a, b, mask_last)
+    if not agrees(st):
+        raise AssertionError(f"{what}: {json.dumps(st)}")
+    return st
+
+
+def stream_path(dev, model, frames, incremental: bool):
+    """Phase 10 for one streaming path at full width."""
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    n = len(frames[0])
+    max_new = MAX_NEW
+    while True:
+        fns = stream_fns(model, STREAM_RT, incremental, max_new)
+        run_stream(fns, frames)                      # warm-up
+        if not incremental:
+            break
+        _, _, carry = run_stream(fns, frames)
+        if not bool(carry[1].overflowed):
+            break
+        max_new *= 2                                 # reported below
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    counts = []
+    logp, aux, carry = run_stream(fns, frames, counts=counts)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches["fused_simplex_pack"] != n:
+        raise AssertionError(f"K1 launched {launches['fused_simplex_pack']} "
+                             f"times in {n} frames")
+    occ = check_stream_output(logp, aux, STREAM_RT, frames[2][-1])
+    overflowed = bool(carry[1].overflowed) if incremental else None
+    if overflowed:
+        raise AssertionError("the incremental path overflowed")
+    levels = torch.stack(counts).cpu()
+    growth = torch.diff(levels, dim=0,
+                        prepend=torch.ones((1, levels.shape[1]),
+                                           dtype=levels.dtype))
+    syncs = host_syncs(lambda: run_stream(fns, frames))
+    # no atomics on the path: the same frames give the same bits
+    if not torch.equal(run_stream(fns, frames)[0], logp):
+        raise AssertionError("a second run of the same sequence gave other "
+                             "log-probabilities")
+
+    secs = []
+    for _ in range(STREAM_SEQS):
+        run_stream(fns, frames, times=secs)
+    ms = np.array(secs).reshape(STREAM_SEQS, n) * 1e3
+    non_final, final = ms[:, :-1].ravel().tolist(), ms[:, -1].tolist()
+    timing = dict(non_final_ms=statistics.median(non_final),
+                  non_final_quartiles_ms=quartiles(non_final),
+                  final_ms=statistics.median(final),
+                  final_quartiles_ms=quartiles(final))
+    if incremental:
+        first, later = ms[:, 0].tolist(), ms[:, 1:-1].ravel().tolist()
+        timing.update(first_frame_ms=statistics.median(first),
+                      first_frame_quartiles_ms=quartiles(first),
+                      later_non_final_ms=statistics.median(later),
+                      later_non_final_quartiles_ms=quartiles(later))
+    events, wall_us = device_events(
+        lambda: run_stream(fns, frames, times=[]), PROFILE_STREAM_SEQS)
+    return logp, dict(
+        **timing, frame_ms_all=ms.tolist(), sequences=STREAM_SEQS,
+        max_new=max_new if incremental else None, overflowed=overflowed,
+        launches=launches,
+        launches_per_frame={k: v / n for k, v in launches.items()},
+        host_syncs_per_sequence=syncs, peak_mem_gb=peak_gb, occupancy=occ,
+        counts_per_frame=levels.tolist(), growth_per_frame=growth.tolist(),
+        profiled_sequences=PROFILE_STREAM_SEQS,
+        **device_summary(events, wall_us, PROFILE_STREAM_SEQS * n, "frame"))
+
+
+def streaming_flagship(dev, state_dict):
+    from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
+
+    data = lidar(STREAM_RT["max_points"])
+    frames = tuple(torch.as_tensor(a, device=dev) for a in data)
+    model = LNNSeq(ModelConfig(), RuntimeConfig(**STREAM_RT), device=dev)
+    model.load_state_dict(state_dict, strict=True)
+    model.eval()
+    _, offline, _ = make_forward(FLAGSHIP_RT, dev, state_dict)
+    with torch.no_grad():
+        logp_off = offline(*frames)[0]
+    del offline
+    logp_p, plain = stream_path(dev, model, frames, incremental=False)
+    logp_i, inc = stream_path(dev, model, frames, incremental=True)
+    last = data[2][-1]
+    res = dict(plain=plain, incremental=inc,
+               plain_vs_offline=logp_stats(logp_p, logp_off, last),
+               incremental_vs_offline=logp_stats(logp_i, logp_off, last),
+               incremental_bit_equal_plain=bool(torch.equal(logp_i, logp_p)),
+               logp_atol=LOGP_ATOL, argmax_agree=ARGMAX_AGREE)
+    bad = {k: res[k] for k in ("plain_vs_offline", "incremental_vs_offline")
+           if not agrees(res[k])}
+    if bad or not res["incremental_bit_equal_plain"]:
+        raise AssertionError(f"streaming disagrees: {json.dumps(bad)}; "
+                             f"incremental bit-equal to plain: "
+                             f"{res['incremental_bit_equal_plain']}")
+    return res
+
+
+def _stream_structures(rt_kw, data, device):
+    """Every frame's tables, row indices, neighbor tables and corner
+    indices, streamed through the per-frame structure ops on ``device``."""
+    from temporal_latticenet_tpu_torch.config import RuntimeConfig
+    from temporal_latticenet_tpu_torch.ops import lattice_ops as lo
+    from temporal_latticenet_tpu_torch.ops import vertex_table as vt
+
+    rt = RuntimeConfig(**rt_kw)
+    tabs = [vt.make_table(c, device) for c in rt.capacities(2)]
+    out = []
+    for pos, mask in zip(*(torch.as_tensor(a, device=device)
+                           for a in (data[0], data[2]))):
+        tabs[0], dist = lo.distribute(tabs[0], pos, mask, rt.sigma)
+        rec = dict(row_vertex=dist.row_vertex, row_bary=dist.row_bary,
+                   row_rel_pos=dist.row_rel_pos,
+                   nbr0=lo.build_neighbor_table(tabs[0]))
+        for i in range(2):
+            tabs[i + 1], link = lo.grow_coarse_table(tabs[i], tabs[i + 1])
+            rec[f"corner_idx{i}"] = link.corner_idx
+            rec[f"nbr{i + 1}"] = lo.build_neighbor_table(tabs[i + 1])
+        for l, tb in enumerate(tabs):
+            for f in ("keys", "packed", "sorted_packed", "sorted_to_stable",
+                      "count"):
+                rec[f"table{l}.{f}"] = getattr(tb, f)
+        out.append({k: (tuple(x.cpu() for x in v) if isinstance(v, tuple)
+                        else v.cpu()) for k, v in rec.items()})
+    return out
+
+
+def streaming_card_vs_cpu(dev):
+    from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
+    from temporal_latticenet_tpu_torch.train import engine
+
+    rt_kw = dict(SMALL_RT, trim_capacity_level0=0, final_capacity_level0=0)
+    cfg, rt = ModelConfig(), RuntimeConfig(**rt_kw)
+    data = lidar(rt_kw["max_points"])
+    last = data[2][-1]
+    a, b = (_stream_structures(rt_kw, data, d) for d in ("cpu", dev))
+    floats = ("row_bary", "row_rel_pos")
+    bad = sorted({f"frame {t}: {k}" for t, (x, y) in enumerate(zip(a, b))
+                  for k in x if k not in floats
+                  and not all(torch.equal(u, v) for u, v in zip(
+                      x[k] if isinstance(x[k], tuple) else (x[k],),
+                      y[k] if isinstance(y[k], tuple) else (y[k],)))})
+    if bad:
+        raise AssertionError(f"streaming structures differ card vs CPU: "
+                             f"{bad}")
+    # K1 computes the weights bit for bit; the local means are sums in
+    # another order on each device
+    float_diff = {k: max(float((x[k] - y[k]).abs().max())
+                         for x, y in zip(a, b)) for k in floats}
+    if float_diff["row_bary"] != 0.0:
+        raise AssertionError(f"barycentric weights differ card vs CPU: "
+                             f"{float_diff['row_bary']}")
+    models = {"cpu": LNNSeq(cfg, rt, device="cpu", seed=0).eval()}
+    models[dev] = LNNSeq(cfg, rt, device=dev).eval()
+    models[dev].load_state_dict(models["cpu"].state_dict(), strict=True)
+    res, logps = {}, {}
+    for inc in (False, True):
+        name = "incremental" if inc else "plain"
+        outs = {d: run_stream(stream_fns(m, rt_kw, inc), data)
+                for d, m in models.items()}
+        logps[name] = outs[dev][0]
+        check_stream_output(outs[dev][0], outs[dev][1], rt_kw, last)
+        res[name] = logp_agreement(outs[dev][0], outs["cpu"][0].to(dev), last,
+                                   f"{name} streaming card vs CPU")
+        if inc:
+            fc, fd = outs["cpu"][2][1], outs[dev][2][1]
+            if bool(fd.overflowed) or bool(fc.overflowed):
+                raise AssertionError("the incremental path overflowed")
+            same = all(torch.equal(x.idx.cpu(), y.idx) and torch.equal(
+                x.found.cpu(), y.found) for x, y in zip(fd.nbrs, fc.nbrs))
+            same &= all(torch.equal(x.corner_idx.cpu(), y.corner_idx)
+                        for x, y in zip(fd.links, fc.links))
+            if not same:
+                raise AssertionError("incremental structures differ card vs "
+                                     "CPU")
+    # two streams stepped together against each alone, on the card
+    data2 = lidar(rt_kw["max_points"], seed=1)
+    both = tuple(torch.as_tensor(np.stack([x, y], axis=1), device=dev)
+                 for x, y in zip(data, data2))
+    new_b, step_b, final_b = engine.make_streaming_inference_batched(
+        models[dev], cfg, rt)
+    carry = new_b(2)
+    for t in range(len(data[0]) - 1):
+        carry = step_b(both[0][t], both[1][t], both[2][t], carry)
+    logp_b, _, _, _ = final_b(both[0][-1], both[1][-1], both[2][-1], carry)
+    single = [logps["plain"], run_stream(stream_fns(models[dev], rt_kw,
+                                                    False), data2)[0]]
+    if not all(torch.equal(logp_b[i], single[i]) for i in range(2)):
+        raise AssertionError("two streams stepped together differ from each "
+                             "stream alone")
+    return dict(points=rt_kw["max_points"], structures_equal=True,
+                float_max_diff=float_diff, logp_atol=LOGP_ATOL, **res,
+                batched_bit_equal=True)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -972,6 +1312,8 @@ def main(argv=None) -> int:
             log(f"[forward_packed] reduced tensor bit-equal, max |d logp| "
                 f"{packed['logp_max_abs_diff']}; launches "
                 f"{packed['launches']}")
+        weights = {k: v.detach().clone()
+                   for k, v in model.state_dict().items()}
         del model, fwd_fn
         torch.cuda.empty_cache()
         train = phase("train", lambda: train_flagship(
@@ -985,6 +1327,24 @@ def main(argv=None) -> int:
                 f"device busy {train['device_busy_share']:.3f}; "
                 f"hand-written {json.dumps(train['hand_written'])}")
         phase("train_card_vs_cpu", lambda: train_card_vs_cpu(dev))
+        torch.cuda.empty_cache()
+        stream = phase("streaming", lambda: streaming_flagship(dev, weights))
+        if stream:
+            for name in ("plain", "incremental"):
+                r = stream[name]
+                log(f"[streaming] {name}: non-final frames "
+                    f"{r['non_final_ms']:.2f} ms (quartiles "
+                    f"{r['non_final_quartiles_ms']}), "
+                    f"final {r['final_ms']:.2f} ms (quartiles "
+                    f"{r['final_quartiles_ms']}) on {dline}; "
+                    f"{r['device_ms_per_frame']:.2f} device ms and "
+                    f"{r['device_launches_per_frame']:.0f} launches per "
+                    f"frame, device busy {r['device_busy_share']:.3f}; "
+                    f"launches per frame {r['launches_per_frame']}; host "
+                    f"syncs {r['host_syncs_per_sequence']}; peak "
+                    f"{r['peak_mem_gb']:.2f} GB; growth "
+                    f"{r['growth_per_frame']}")
+        phase("streaming_card_vs_cpu", lambda: streaming_card_vs_cpu(dev))
 
     # launches: the training step (this slice's path, on the packed route);
     # the forwards' counts beside them
@@ -992,6 +1352,7 @@ def main(argv=None) -> int:
     fwd_launches = (report.get("forward") or {}).get("launches") or {}
     packed_launches = (report.get("forward_packed") or {}).get("launches") \
         or {}
+    stream = report.get("streaming") or {}
     on_path = (report.get("profile") or {}).get("hand_written") or {}
     on_step = (report.get("train") or {}).get("hand_written") or {}
     line = []
@@ -1006,6 +1367,11 @@ def main(argv=None) -> int:
             wall_ms=k.get("wall_ms"), case=k.get("case"),
             launches_forward=fwd_launches.get(name, 0),
             launches_forward_packed=packed_launches.get(name, 0),
+            launches_streaming=((stream.get("plain") or {}).get("launches")
+                                or {}).get(name, 0),
+            launches_streaming_incremental=(
+                (stream.get("incremental") or {}).get("launches")
+                or {}).get(name, 0),
             main_path_device_ms_per_seq=(on_path.get(name) or {}).get(
                 "device_ms_per_seq"),
             main_path_device_ms_per_step=(on_step.get(name) or {}).get(

@@ -224,7 +224,7 @@ class GnReluCoarsen(nn.Module):
     def forward(self, fine_values, fine_count, link, coarse_nbr,
                 coarse_count):
         x = torch.relu(self.gn(fine_values, fine_count))
-        pooled = lo.splat_to_coarse(x, link)
+        pooled = lo.splat_to_coarse(x, link, coarse_nbr.idx.shape[0])
         pooled = lo.mask_rows(pooled, coarse_count)
         return self.conv(pooled, coarse_nbr, coarse_count)
 

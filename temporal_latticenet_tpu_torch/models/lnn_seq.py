@@ -1,5 +1,5 @@
 """LNN_SEQ: the temporal permutohedral-lattice U-Net (port of the JAX
-package's ``models/lnn_seq.py``) over a precomputed whole-sequence lattice.
+package's ``models/lnn_seq.py``).
 
 Per frame: PointNet early fusion + first conv -> down path with middle
 fusion at level 0 -> bottleneck blocks + bottleneck fusion -> up path with
@@ -10,8 +10,14 @@ Quirk kept: the up-stage resnet blocks sit outside the upsample loop in the
 reference, so only the final stage's blocks run (``apply_all_up_resnets``
 restores the intended architecture).
 
-The streaming path (per-frame vertex tables) is not ported: the state holds
-no tables, and the lattice always comes from ``ops.seq_lattice``.
+A frame takes its lattice structure from one of three sources: the
+precomputed whole-sequence lattice of ``ops.seq_lattice`` (the offline
+path, with the batched pointnet's reduced tensor; the state holds no
+tables), the streaming incremental path's ``FrameStructures`` with the
+frame's ``DistributeOut`` (built by the engine), or neither: the frame is
+distributed onto the per-level vertex tables carried in the state, and
+every level's neighbor table and coarse link is built in full.  On the
+streaming paths the pointnet runs per frame.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from torch import nn
 
 from ..config import ModelConfig, RuntimeConfig
 from ..device import resolve_device
+from ..ops import lattice_ops as lo
+from ..ops import vertex_table as vt
 from .blocks import (BottleneckBlock, DeformSlice, GnReluCoarsen, GnReluFinefy,
                      ResnetBlock)
 from .fusion import make_fusion
@@ -35,11 +43,13 @@ SITES = ("early", "middle", "bottleneck", "late")
 @dataclasses.dataclass
 class SeqState:
     """Temporal carry: hidden values per fusion site, the site level's vertex
-    count when each was written, and the frame index."""
+    count when each was written, the frame index, and on the streaming
+    paths the vertex table of every level (None offline)."""
 
     h: Tuple[torch.Tensor, ...]
     prev_counts: Tuple[object, ...]
     t: int
+    tables: Tuple[vt.VertexTable, ...] | None = None
 
 
 def site_level(cfg: ModelConfig, site: str) -> int:
@@ -52,8 +62,10 @@ def site_channels(cfg: ModelConfig, site: str) -> int:
             "late": cfg.late_channels}[site]
 
 
-def init_state(cfg: ModelConfig, rt: RuntimeConfig, device) -> SeqState:
-    """Fresh sequence state (zero hidden values at full capacity)."""
+def init_state(cfg: ModelConfig, rt: RuntimeConfig, device,
+               tables: bool = False) -> SeqState:
+    """Fresh sequence state (zero hidden values at full capacity), with
+    empty vertex tables per level when ``tables`` (the streaming paths)."""
     caps = rt.capacities(cfg.nr_downsamples)
     h = []
     for site, kind in zip(SITES, cfg.rnn_modules):
@@ -62,7 +74,9 @@ def init_state(cfg: ModelConfig, rt: RuntimeConfig, device) -> SeqState:
                                   site_channels(cfg, site)), device=device))
         else:
             h.append(torch.zeros((1, 1), device=device))
-    return SeqState(h=tuple(h), prev_counts=(1,) * len(SITES), t=0)
+    return SeqState(h=tuple(h), prev_counts=(1,) * len(SITES), t=0,
+                    tables=(tuple(vt.make_table(c, device) for c in caps)
+                            if tables else None))
 
 
 def _last_active_site(cfg: ModelConfig) -> int:
@@ -164,12 +178,41 @@ class LNNSeq(nn.Module):
         return self.point_net_seq.reduce_sorted(
             seqlat.sorted_pn, values, seqlat.row_bary, seqlat.nr_points)
 
-    def forward(self, state: SeqState, seqlat, dist, pre_reduced,
-                final: bool = True):
-        """One frame over the precomputed sequence lattice ``seqlat`` (a full
-        or trimmed view).  ``dist`` is this frame's ``DistributeOut`` and
-        ``pre_reduced`` its (cap0, 2*C) slice of :meth:`reduce_pointnet`.
-        Returns (logits or None, new state, aux)."""
+    def _structures(self, state: SeqState, seqlat, dist, positions, mask):
+        """This frame's (nbrs, links, counts, dist, tables) from one of the
+        three sources of the module docstring."""
+        L = self.cfg.nr_downsamples
+        t = state.t
+        if isinstance(seqlat, lo.FrameStructures):
+            return (list(seqlat.nbrs), list(seqlat.links),
+                    list(seqlat.counts), dist, state.tables)
+        if seqlat is not None:
+            return ([seqlat.frame_nbr(l, t) for l in range(L + 1)],
+                    list(seqlat.links),
+                    [seqlat.levels[l].counts[t] for l in range(L + 1)],
+                    dist, state.tables)
+        tables = list(state.tables)
+        tables[0], dist = lo.distribute(tables[0], positions, mask,
+                                        self.rt.sigma)
+        nbrs, links = [lo.build_neighbor_table(tables[0])], []
+        for i in range(L):
+            tables[i + 1], link = lo.grow_coarse_table(tables[i],
+                                                       tables[i + 1])
+            links.append(link)
+            nbrs.append(lo.build_neighbor_table(tables[i + 1]))
+        return (nbrs, links, [tb.count for tb in tables], dist,
+                tuple(tables))
+
+    def forward(self, state: SeqState, seqlat=None, dist=None,
+                pre_reduced=None, final: bool = True, positions=None,
+                values=None, mask=None):
+        """One frame.  The structure comes from ``seqlat``: the precomputed
+        sequence lattice (a full or trimmed view, with this frame's
+        ``DistributeOut`` ``dist`` and ``pre_reduced``, its (cap0, 2*C)
+        slice of :meth:`reduce_pointnet`), a ``FrameStructures`` (with
+        ``dist`` and the frame's (P, V) ``values``), or None: the frame's
+        (P, 3) ``positions``, ``values`` and (P,) ``mask`` are distributed
+        onto ``state.tables``.  Returns (logits or None, new state, aux)."""
         cfg, rt = self.cfg, self.rt
         L = cfg.nr_downsamples
         t = state.t
@@ -178,15 +221,19 @@ class LNNSeq(nn.Module):
         cut = _last_active_site(cfg) if seq else 3
         h = list(state.h)
         pc = list(state.prev_counts)
+        nbrs, links, counts, dist, tables = self._structures(
+            state, seqlat, dist, positions, mask)
 
         def pack_state():
-            return SeqState(h=tuple(h), prev_counts=tuple(pc), t=t + 1)
+            return SeqState(h=tuple(h), prev_counts=tuple(pc), t=t + 1,
+                            tables=tables)
 
         early_out = {"point_vertex": dist.point_vertex}
-        nbrs = [seqlat.frame_nbr(l, t) for l in range(L + 1)]
-        links = list(seqlat.links)
-        counts = [seqlat.levels[l].counts[t] for l in range(L + 1)]
-
+        if pre_reduced is None:
+            values_rows = (values.repeat_interleave(4, dim=0)
+                           * dist.row_valid[:, None])
+            pre_reduced = self.point_net_seq.reduce_frame(
+                dist, values_rows, nbrs[0].idx.shape[0])
         lv, h[0] = self.point_net_seq.fuse_and_conv(
             pre_reduced, nbrs[0], counts[0], h[0], pc[0], is_first)
         pc[0] = counts[0]

@@ -1,16 +1,18 @@
-"""PointNet splat head on union-sorted rows (port of the JAX package's
-``PointNetSeq._reduce_sorted`` and ``_fuse_and_conv``).
+"""PointNet splat head (port of the JAX package's ``PointNetSeq``: the
+batched ``_reduce_sorted``, the per-frame path of ``__call__`` for
+experiment "none" in bf16, and ``_fuse_and_conv``).
 
-The per-row MLP runs for all frames at once over the union-sorted rows;
-every (vertex, frame) bucket is a contiguous sub-run there, so the
+Offline, the per-row MLP runs for all frames at once over the union-sorted
+rows; every (vertex, frame) bucket is a contiguous sub-run there, so the
 per-vertex max is one segmented max scan (kernel K4, or K5 and K4 under
 ``TLN_MAXSCAN_PACKED=1``, through ``ops/segment.sorted_packed_max``) read
 at the bucket tails; its gradient flows straight through to the winning
-rows.  Each frame
-then resumes with its slice of the reduced tensor: early temporal fusion
-and the first lattice convolution.  Reference quirks kept: the winning
-row's barycentric weight is concatenated per channel, and vertices touched
-by fewer than 4 rows are zeroed.
+rows.  Streaming, one frame's rows go through the MLP and one packed
+scatter max (``ops/segment.segment_max_with_bary_packed``).  Each frame
+then goes on with its reduced tensor: early temporal fusion and the first
+lattice convolution.  Reference quirks kept: the winning row's barycentric
+weight is concatenated per channel, and vertices touched by fewer than 4
+rows are zeroed (except under early maxpool fusion).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops import lattice_ops as lo
-from ..ops.segment import sorted_packed_max
+from ..ops.segment import segment_max_with_bary_packed, sorted_packed_max
 from .blocks import LatticeConv, Linear, torch_dtype
 from .fusion import make_fusion
 
@@ -43,6 +45,46 @@ class PointNetSeq(nn.Module):
         else:
             self.fusion_module = None
 
+    def _mlp(self, x, cd):
+        n = len(self.layers)
+        for i, lin in enumerate(self.layers):
+            x = lin(x, cd).to(cd)
+            if i < n - 1:
+                x = torch.relu(x)
+        return x
+
+    def _zero_sparse(self, reduced, nr_points):
+        """Vertices touched by fewer than 4 rows are zeroed, except under
+        early maxpool fusion."""
+        cfg = self.cfg
+        if cfg.sequence_learning and cfg.rnn_modules[0] == "maxpool":
+            return reduced
+        return torch.where((nr_points >= 4)[..., None], reduced,
+                           torch.zeros((), device=reduced.device))
+
+    def reduce_frame(self, dist, values_rows, cap: int):
+        """One frame's MLP + packed max (the streaming path).
+
+        Args:
+          dist: this frame's ``DistributeOut``; values_rows: (P*4, V)
+            float32 point values per row, zero on invalid rows.
+        Returns (cap, 2*C) float32: per-channel maxima, then the winning
+        rows' barycentric weights.
+        """
+        cfg = self.cfg
+        if cfg.experiment != "none" or cfg.compute_dtype != "bfloat16" \
+                or cfg.reference_bary_quirk:
+            raise NotImplementedError(
+                "the per-frame pointnet is ported for experiment 'none' in "
+                "bf16 only")
+        rid, rvalid = dist.row_vertex, dist.row_valid
+        x = self._mlp(torch.cat([dist.row_rel_pos, values_rows], dim=-1)
+                      .to(torch.bfloat16), torch.bfloat16)
+        nr_points = lo.segment_sum(rvalid.to(torch.float32), rid, cap)
+        mx, bary_sel = segment_max_with_bary_packed(x, dist.row_bary, rid,
+                                                    cap, rvalid)
+        return self._zero_sparse(torch.cat([mx, bary_sel], dim=-1), nr_points)
+
     def reduce_sorted(self, spn, values, row_bary, nr_points_all):
         """All-frames MLP + packed max over union-sorted rows.
 
@@ -54,8 +96,7 @@ class PointNetSeq(nn.Module):
         Returns (T, cap, 2*C) float32: per-channel maxima, then the winning
         rows' barycentric weights.
         """
-        cfg = self.cfg
-        cd = torch_dtype(cfg.compute_dtype)
+        cd = torch_dtype(self.cfg.compute_dtype)
         t, p, v = values.shape
         live = spn.live
         if spn.vals is not None:
@@ -66,12 +107,7 @@ class PointNetSeq(nn.Module):
             vb = torch.cat([vals_flat, row_bary.reshape(-1, 1)], dim=1)[spn.so]
             vals_s = vb[:, :v] * live[:, None]
             bary_s = vb[:, v]
-        x = torch.cat([spn.rel, vals_s], dim=-1).to(cd)
-        n = len(self.layers)
-        for i, lin in enumerate(self.layers):
-            x = lin(x, cd).to(cd)
-            if i < n - 1:
-                x = torch.relu(x)
+        x = self._mlp(torch.cat([spn.rel, vals_s], dim=-1).to(cd), cd)
         mx, bary_sel = sorted_packed_max(x, bary_s, live, spn.head_count,
                                          spn.bucket, spn.tailpos,
                                          nr_points_all > 0)
@@ -79,10 +115,7 @@ class PointNetSeq(nn.Module):
         c = x.shape[-1]
         reduced = torch.cat([mx.reshape(t, cap, c),
                              bary_sel.reshape(t, cap, c)], dim=-1)
-        if not (cfg.sequence_learning and cfg.rnn_modules[0] == "maxpool"):
-            reduced = torch.where((nr_points_all >= 4)[..., None], reduced,
-                                  torch.zeros((), device=reduced.device))
-        return reduced
+        return self._zero_sparse(reduced, nr_points_all)
 
     def fuse_and_conv(self, reduced, nbr, count, h_early, prev_count,
                       is_first):

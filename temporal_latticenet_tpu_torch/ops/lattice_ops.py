@@ -1,7 +1,8 @@
-"""Lattice compute ops of the offline sequence forward and its backward
-(port of the JAX package's ``ops/lattice_ops.py``): neighbor tables, the
-one-hop lattice convolution, the coarsen splat and finefy slice through a
-level link, and the deform-slice gather.
+"""Lattice compute ops (port of the JAX package's ``ops/lattice_ops.py``):
+the streaming path's per-frame structures (distribute onto a vertex table,
+neighbor tables, coarse tables and links, each built in full or updated
+incrementally), the one-hop lattice convolution, the coarsen splat and
+finefy slice through a level link, and the deform-slice gather.
 
 Vertex-value arrays are capacity-padded (cap, C) and exactly zero outside
 the occupied rows [1, count) (:func:`mask_rows`); gathers through absent
@@ -12,7 +13,15 @@ here, with the same backward: the neighborhood gather's transpose is another
 gather (:class:`_Gather8Sym`), the coarsen splat's is the barycentric slice
 (:class:`_SplatSorted`), and the finefy slice's is the splat on the link's
 dst-sorted view through kernel K2 (:class:`_SliceSorted`).  Barycentric
-weights get no gradient (nothing differentiates point positions).
+weights get no gradient (nothing differentiates point positions).  The
+streaming path's links have no dst-sorted view: their splat is a float32
+:func:`segment_sum` and their slice a plain gather.
+
+The streaming structures keep every count on the device; nothing in a frame
+reads a tensor on the host.  ``.at[...].set(..., mode="drop")`` of the JAX
+package becomes a write into a copy with one extra drop row, and its
+float32 ``segment_sum`` is :func:`segment_sum`, which gives the same bits
+on every call.
 """
 
 from __future__ import annotations
@@ -25,8 +34,12 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import permutohedral as pm
+from .fused_simplex import fused_simplex_pack
 from .seg_scan import sorted_segment_scan
-from .vertex_table import PACKED_SENTINEL
+from .vertex_table import (PACKED_SENTINEL, SENTINEL, VertexTable, lookup,
+                           scatter_or_drop, union_and_index,
+                           union_and_index_packed)
 
 
 @dataclasses.dataclass
@@ -47,8 +60,9 @@ class DistributeOut:
 
 
 class NeighborTable(NamedTuple):
-    """One-hop adjacency: ``idx[:, :8]`` neighbors (0 where absent),
-    ``idx[:, 8]`` the vertex itself (center last)."""
+    """One-hop adjacency: ``idx[:, :8]`` neighbors (0 where absent), in
+    ``neighbor_offsets`` order (``gather8_sym``'s backward and AFlow's taps
+    depend on it), ``idx[:, 8]`` the vertex itself (center last)."""
 
     idx: torch.Tensor    # (C, 9) int64
     found: torch.Tensor  # (C, 9) bool
@@ -56,16 +70,219 @@ class NeighborTable(NamedTuple):
 
 @dataclasses.dataclass
 class LevelLink:
-    """Barycentric coupling of a fine level to the next coarser one, with its
-    dst-sorted splat view (built by :func:`augment_link_sorted`)."""
+    """Barycentric coupling of a fine level to the next coarser one; the
+    offline path adds its dst-sorted splat view (:func:`augment_link_sorted`),
+    the streaming path's links have none."""
 
     corner_idx: torch.Tensor    # (Cf, 4) int64 coarse indices
     corner_bary: torch.Tensor   # (Cf, 4) float32
-    sorted_src: torch.Tensor    # (Cf*4,) int64 fine row per entry
-    sorted_w: torch.Tensor      # (Cf*4,) float32 bary per entry
-    sorted_dst: torch.Tensor    # (Cf*4,) int32 nondecreasing dst
-    tailpos: torch.Tensor       # (Cc,) int64 last entry position
-    tail_live: torch.Tensor     # (Cc,) bool dst has entries
+    sorted_src: torch.Tensor | None = None  # (Cf*4,) int64 fine row per entry
+    sorted_w: torch.Tensor | None = None    # (Cf*4,) float32 bary per entry
+    sorted_dst: torch.Tensor | None = None  # (Cf*4,) int32 nondecreasing dst
+    tailpos: torch.Tensor | None = None     # (Cc,) int64 last entry position
+    tail_live: torch.Tensor | None = None   # (Cc,) bool dst has entries
+
+
+@dataclasses.dataclass
+class FrameStructures:
+    """One frame's lattice structures on the streaming incremental path,
+    built by the engine between frames and handed to the model.
+
+    ``overflowed`` turns True once a frame's growth at some level exceeded
+    the incremental update's ``max_new`` bound: the vertices beyond it have
+    no adjacency or link rows, for good (the tables are append-only), so
+    the results are degraded.  It stays True for the rest of the sequence;
+    callers check it and rebuild in full or with a larger bound."""
+
+    nbrs: tuple                 # NeighborTable per level
+    links: tuple                # LevelLink per downsample
+    counts: tuple               # () int64 per level
+    overflowed: torch.Tensor    # () bool
+
+
+_SPREAD = 1024   # rows that take segment 0's rows in segment_sum
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Per-segment sums of the rows of ``data`` (the JAX package's
+    ``segment_sum``), the same bits on every call and on either device:
+    each segment's rows are added in row order.  On the CPU that is
+    ``index_add_``; on CUDA ``index_add_`` would add with atomics, in an
+    order that changes from run to run, so ``index_put_`` with
+    ``accumulate`` sorts the ids and adds each segment's rows in turn.
+
+    Segment 0 is the reserved invalid bucket, whose rows carry zero weight
+    or whose sum is masked by every caller: its rows are left out and its
+    sum is 0.  They go to ``_SPREAD`` extra rows instead, because the
+    sorted accumulate adds one segment's rows one after another, and the
+    bucket holds every masked point's rows (tens of thousands a frame)."""
+    q = segment_ids.shape[0]
+    spread = num_segments + (torch.arange(q, device=segment_ids.device)
+                             % _SPREAD)
+    ids = torch.where(segment_ids > 0, segment_ids, spread)
+    out = torch.zeros((num_segments + _SPREAD,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    if data.is_cuda:
+        out.index_put_((ids,), data, accumulate=True)
+    else:
+        out.index_add_(0, ids, data)
+    return out[:num_segments]
+
+
+def distribute(table: VertexTable, positions: torch.Tensor,
+               point_mask: torch.Tensor, sigma: float):
+    """Splat one frame's points onto the lattice, growing the (carried)
+    vertex table append-only.
+
+    Keys and weights come from kernel K1 (``fused_simplex_pack``; its plain
+    version for CPU tensors), which computes the JAX package's ``elevate``
+    + ``find_enclosing_simplex`` + ``pack_keys`` bit for bit.  The local
+    mean is a float32 :func:`segment_sum` of (xyz * w, w) per vertex, and
+    every row's position is taken relative to its vertex's mean (the
+    no-local-mean experiments are not ported).
+
+    Args:
+      positions: (P, 3) float32, zero-padded; point_mask: (P,) bool.
+    Returns ``(new_table, DistributeOut)`` with (P*4,) row fields.
+    """
+    p = positions.shape[0]
+    y = pm.scale_positions(positions, sigma).contiguous()
+    packed4, bary4 = fused_simplex_pack(y, point_mask.contiguous())
+    new_table, row_vertex = union_and_index_packed(table, packed4.reshape(-1))
+
+    row_valid = point_mask.repeat_interleave(4) & (row_vertex > 0)
+    row_bary = torch.where(row_valid, bary4.reshape(-1),
+                           torch.zeros((), device=bary4.device))
+    pos_rows = positions.to(torch.float32).repeat_interleave(4, dim=0)
+    w = row_valid.to(torch.float32)
+    s = segment_sum(torch.cat([pos_rows * w[:, None], w[:, None]], dim=1),
+                    row_vertex, table.capacity)
+    mean = s[:, :3] / torch.clamp(s[:, 3:], min=1.0)
+    rel = (pos_rows - mean[row_vertex]) * w[:, None]
+    return new_table, DistributeOut(
+        row_vertex=row_vertex, row_bary=row_bary, row_rel_pos=rel,
+        row_valid=row_valid, point_vertex=row_vertex.reshape(p, 4),
+        point_bary=row_bary.reshape(p, 4))
+
+
+def _nbr_rows(table: VertexTable, rows: torch.Tensor, in_table: torch.Tensor):
+    """Adjacency rows of the stable slots ``rows``: all eight offset keys
+    looked up, the center last; rows outside ``in_table`` find nothing.
+    Returns (idx (R, 9), found (R, 9), hit (R, 8) stable index or -1)."""
+    keys = table.keys[rows]
+    offs = pm.neighbor_offsets_tensor(3, keys.device)
+    n_off = offs.shape[0]
+    queries = (keys[:, None, :].to(torch.int64) + offs[None]).reshape(-1, 3)
+    hit = lookup(table, queries).reshape(-1, n_off)
+    hit = torch.where(in_table[:, None], hit, torch.full_like(hit, -1))
+    valid_self = in_table & (keys[:, 0] != SENTINEL)
+    idx = torch.cat([hit.clamp(min=0), rows[:, None]], dim=1)
+    found = torch.cat([hit >= 0, valid_self[:, None]], dim=1) \
+        & valid_self[:, None]
+    return idx, found, hit
+
+
+def build_neighbor_table(table: VertexTable) -> NeighborTable:
+    """Every vertex's one-hop adjacency by a batched binary search of all
+    eight offset keys; one build per level per frame."""
+    cap = table.capacity
+    rows = torch.arange(cap, device=table.keys.device)
+    idx, found, _ = _nbr_rows(table, rows, torch.ones_like(rows, dtype=bool))
+    return NeighborTable(idx=idx, found=found)
+
+
+def update_neighbor_table(table: VertexTable, nbr: NeighborTable, old_count,
+                          max_new: int) -> NeighborTable:
+    """Extend a NeighborTable after an append-only union: look up rows only
+    for the (at most ``max_new``) new vertices, then write the reverse taps
+    of their found neighbors (key_v + off[a] == key_j implies key_j +
+    off[(a + 4) % 8] == key_v) through the flat (cap * 9) view.  New-new
+    pairs are written from both sides alike; old-old pairs are untouched.
+    Rows past ``max_new`` new vertices get no update (the engine's sticky
+    ``overflowed`` flag reports it).
+
+    Args:
+      table: the table after the union; nbr: adjacency valid for the first
+        ``old_count`` slots; old_count: () count before the union.
+    """
+    cap = table.capacity
+    dev = table.keys.device
+    n_off = nbr.idx.shape[1] - 1
+    rows = old_count + torch.arange(max_new, device=dev)
+    rows_c = rows.clamp(max=cap - 1)
+    in_new = rows < table.count
+    idx_rows, found_rows, hit = _nbr_rows(table, rows_c, in_new)
+    dst = torch.where(in_new, rows_c, torch.full_like(rows_c, cap))
+    idx = scatter_or_drop(nbr.idx, dst, idx_rows)
+    found = scatter_or_drop(nbr.found, dst, found_rows)
+
+    rev_tap = (torch.arange(n_off, device=dev) + n_off // 2) % n_off
+    j = torch.where(hit >= 0, hit, torch.full_like(hit, cap))
+    flat_dst = (j * (n_off + 1) + rev_tap[None, :]).reshape(-1)
+    flat_dst = flat_dst.clamp(max=cap * (n_off + 1))
+    v_src = rows_c[:, None].expand(-1, n_off).reshape(-1)
+    idx = scatter_or_drop(idx.reshape(-1), flat_dst, v_src).reshape(
+        cap, n_off + 1)
+    found = scatter_or_drop(found.reshape(-1), flat_dst,
+                            torch.ones_like(flat_dst, dtype=torch.bool)
+                            ).reshape(cap, n_off + 1)
+    return NeighborTable(idx=idx, found=found)
+
+
+def _coarse_corners(keys: torch.Tensor, valid: torch.Tensor):
+    """The coarse simplex of every fine key: the key is its elevated
+    position, so key * 0.5 lies on the coarse hyperplane.  Returns (corner
+    keys (R, 4, 3), bary (R, 4)).  Invalid rows are zeroed first (the
+    float-to-int conversion of sentinel-sized keys is undefined)."""
+    key_f = torch.where(valid[:, None], keys,
+                        torch.zeros((), dtype=keys.dtype, device=keys.device)
+                        ).to(torch.float32)
+    full = torch.cat([key_f, -key_f.sum(-1, keepdim=True)], dim=-1)
+    return pm.find_enclosing_simplex(full * 0.5)
+
+
+def _corner_link(coarse_table, ckeys, cbary, valid):
+    new_coarse, flat_idx = union_and_index(
+        coarse_table, ckeys.reshape(-1, 3), valid.repeat_interleave(4))
+    corner_idx = flat_idx.reshape(-1, 4)
+    corner_bary = torch.where(valid[:, None] & (corner_idx > 0), cbary,
+                              torch.zeros((), device=cbary.device))
+    return new_coarse, corner_idx, corner_bary
+
+
+def grow_coarse_table(fine_table: VertexTable, coarse_table: VertexTable):
+    """Union every fine vertex's coarse-simplex corners into the carried
+    coarse table (append-only, so coarse indices are stable across frames)
+    and return ``(new_coarse, LevelLink)`` without a sorted view."""
+    valid = fine_table.keys[:, 0] != SENTINEL
+    ckeys, cbary = _coarse_corners(fine_table.keys, valid)
+    new_coarse, corner_idx, corner_bary = _corner_link(coarse_table, ckeys,
+                                                       cbary, valid)
+    return new_coarse, LevelLink(corner_idx=corner_idx,
+                                 corner_bary=corner_bary)
+
+
+def grow_coarse_table_incremental(fine_table: VertexTable,
+                                  coarse_table: VertexTable, old_fine_count,
+                                  link: LevelLink, max_new: int):
+    """Incremental :func:`grow_coarse_table`: union only the corners of the
+    (at most ``max_new``) new fine vertices and patch their rows into the
+    carried link; old fine vertices' corners do not change."""
+    cap = fine_table.capacity
+    rows = old_fine_count + torch.arange(max_new,
+                                         device=fine_table.keys.device)
+    rows_c = rows.clamp(max=cap - 1)
+    in_new = rows < fine_table.count
+    keys = fine_table.keys[rows_c]
+    valid = in_new & (keys[:, 0] != SENTINEL)
+    ckeys, cbary = _coarse_corners(keys, valid)
+    new_coarse, corner_idx, corner_bary = _corner_link(coarse_table, ckeys,
+                                                       cbary, valid)
+    dst = torch.where(in_new, rows_c, torch.full_like(rows_c, cap))
+    return new_coarse, LevelLink(
+        corner_idx=scatter_or_drop(link.corner_idx, dst, corner_idx),
+        corner_bary=scatter_or_drop(link.corner_bary, dst, corner_bary))
 
 
 def mask_rows(values: torch.Tensor, count) -> torch.Tensor:
@@ -261,17 +478,28 @@ class _SliceSorted(torch.autograd.Function):
         return _splat_sorted_impl(d_fine, ctx.link), None
 
 
-def splat_to_coarse(fine_values: torch.Tensor,
-                    link: LevelLink) -> torch.Tensor:
-    """Barycentric splat of fine vertex features onto the coarse level
-    (K2 on the link's dst-sorted view).  Returns (Cc, C), Cc the link's
-    coarse capacity."""
-    return _SplatSorted.apply(fine_values, link)
+def splat_to_coarse(fine_values: torch.Tensor, link: LevelLink,
+                    coarse_cap: int | None = None) -> torch.Tensor:
+    """Barycentric splat of fine vertex features onto the coarse level:
+    K2 on the link's dst-sorted view (whose size is the coarse capacity),
+    or, for a link without one, a float32 :func:`segment_sum` into
+    ``coarse_cap`` rows.  Returns (Cc, C)."""
+    if link.sorted_src is not None:
+        return _SplatSorted.apply(fine_values, link)
+    if coarse_cap is None:
+        raise ValueError("splat_to_coarse: a link without a sorted view "
+                         "needs coarse_cap")
+    contrib = fine_values[:, None, :] * link.corner_bary[..., None]
+    return segment_sum(contrib.reshape(-1, fine_values.shape[-1]),
+                       link.corner_idx.reshape(-1), coarse_cap)
 
 
 def slice_to_fine(coarse_values: torch.Tensor, link: LevelLink) -> torch.Tensor:
     """Barycentric slice of coarse features back onto the fine vertices;
-    ``coarse_values`` has the link's Cc rows."""
+    ``coarse_values`` has the link's Cc rows.  Without a sorted view the
+    slice is the plain gather (and its backward autograd's)."""
+    if link.sorted_src is None:
+        return _slice_impl(coarse_values, link)
     if coarse_values.shape[0] != link.tailpos.shape[0]:
         raise ValueError(f"slice_to_fine: {coarse_values.shape[0]} coarse rows "
                          f"for a link of {link.tailpos.shape[0]}")

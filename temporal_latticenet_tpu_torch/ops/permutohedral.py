@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 __all__ = ["scale_factors", "scale_positions", "elevate",
-           "find_enclosing_simplex", "neighbor_offsets"]
+           "find_enclosing_simplex", "neighbor_offsets",
+           "neighbor_offsets_tensor"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,16 +28,22 @@ def scale_factors(d: int) -> np.ndarray:
     return (inv_std_dev / np.sqrt((j + 1) * (j + 2))).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _scale_constants(d: int, sigma: float, device: torch.device):
+    """The scale factors and the sigma divisor as tensors on ``device``,
+    made once: a host-to-device copy waits for the device's queue."""
+    return (torch.from_numpy(scale_factors(d)).to(device),
+            torch.tensor(sigma, dtype=torch.float32, device=device))
+
+
 def scale_positions(positions: torch.Tensor, sigma: float) -> torch.Tensor:
     """``y = (positions / sigma) * scale_factors`` in float32.
 
     The divisor is a device tensor, not a Python scalar: CUDA turns a
     division by a host scalar into a multiplication by its reciprocal,
     which is not bit-equal to the division the CPU performs."""
-    d = positions.shape[-1]
-    dev = positions.device
-    s = torch.from_numpy(scale_factors(d)).to(dev)
-    div = torch.tensor(sigma, dtype=torch.float32, device=dev)
+    s, div = _scale_constants(positions.shape[-1], float(sigma),
+                              positions.device)
     return (positions.to(torch.float32) / div) * s
 
 
@@ -124,3 +131,10 @@ def neighbor_offsets(d: int) -> np.ndarray:
         offs.append(full[:d])
     offs = np.stack(offs, axis=0)
     return np.concatenate([offs, -offs], axis=0)
+
+
+@functools.lru_cache(maxsize=None)
+def neighbor_offsets_tensor(d: int, device: torch.device) -> torch.Tensor:
+    """:func:`neighbor_offsets` as an int64 tensor on ``device``, made
+    once."""
+    return torch.from_numpy(neighbor_offsets(d)).to(device, torch.int64)

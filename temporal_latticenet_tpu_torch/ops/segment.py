@@ -1,13 +1,17 @@
-"""Packed value + barycentric-weight segment max over contiguous sorted
-sub-runs (port of the JAX package's ``ops/segment.sorted_packed_max``, with
-its straight-through backward).
+"""Packed value + barycentric-weight segment max (port of the JAX
+package's ``ops/segment.sorted_packed_max``, with its straight-through
+backward, and the forward of ``segment_max_with_bary_packed``).
 
 The bf16 value bits (monotone-mapped) go into the high 16 bits of a uint32
 and the quantised barycentric weight into the low 16, so one segmented
 running max carries both; each bucket's result is read at its tail row.
 The uint32 bits are held in int32 tensors.
 
-Two routes, bit-equal at the tails (max does not depend on order):
+The streaming path's per-frame max (:func:`segment_max_with_bary_packed`)
+is one ``scatter_reduce("amax")`` of the packed values, as uint32 in int64,
+from a zero fill.  The offline path's max over contiguous sorted sub-runs
+(:func:`sorted_packed_max`) takes one of two routes, bit-equal at the tails
+(max does not depend on order):
 
 * the default: one full-run segmented max (kernel K4) read at the tails;
 * with ``TLN_MAXSCAN_PACKED=1`` in the environment (read at call time, the
@@ -48,7 +52,8 @@ def _pack_value_bary(data: torch.Tensor, bary: torch.Tensor,
 
 
 def _decode_packed(best: torch.Tensor):
-    """(B, C) int32 uint32 bits -> (max (B, C) float32, bary (B, C))."""
+    """(B, C) uint32 bits, held in int32 or int64 -> (max (B, C) float32,
+    bary (B, C))."""
     has = best != 0
     mono = (best >> 16) & 0xFFFF
     bits = torch.where(mono >= 0x8000, mono ^ 0x8000, mono ^ 0xFFFF)
@@ -165,3 +170,27 @@ def sorted_packed_max(data, bary, live, head_count, bucket, tailpos,
     """
     return _SortedPackedMax.apply(data, bary, live, head_count, bucket,
                                   tailpos, bucket_live)
+
+
+def segment_max_with_bary_packed(data, bary, segment_ids, num_segments: int,
+                                 valid):
+    """Per-segment, per-channel max of bf16 ``data`` and the barycentric
+    weight of the winning row, in one scatter: the packed values (uint32,
+    held in int64) reduced by ``scatter_reduce("amax")`` into a zero fill;
+    0 is the empty identity, so empty segments give (0, 0).  Forward only
+    (the streaming path runs without gradients).
+
+    Args:
+      data: (R, C) rows, cast to bf16; bary: (R,) float32 in [0, 1];
+      segment_ids: (R,) int64 in [0, num_segments); valid: (R,) bool,
+        invalid rows never win.
+    Returns (mx (S, C) float32, bary_sel (S, C) float32).
+    """
+    if torch.is_grad_enabled() and (data.requires_grad or bary.requires_grad):
+        raise NotImplementedError(
+            "the per-frame packed max has no backward in the port yet")
+    packed = _pack_value_bary(data, bary, valid).to(torch.int64) & 0xFFFFFFFF
+    best = torch.zeros((num_segments, packed.shape[1]), dtype=torch.int64,
+                       device=packed.device).scatter_reduce_(
+        0, segment_ids[:, None].expand_as(packed), packed, "amax")
+    return _decode_packed(best)

@@ -25,7 +25,8 @@ from . import permutohedral as pm
 from .fused_simplex import fused_simplex_pack
 from .lattice_ops import LevelLink, NeighborTable, augment_link_sorted
 from .seg_scan import seg_sum_tails, sorted_segment_scan
-from .vertex_table import PACKED_SENTINEL, SENTINEL, pack_keys, unpack_keys
+from .vertex_table import (PACKED_SENTINEL, SENTINEL, shifted_ne,
+                           lookup_select, pack_keys, unpack_keys)
 
 
 @dataclasses.dataclass
@@ -81,13 +82,6 @@ class SeqLattice:
 def _sort_perm(key: torch.Tensor) -> torch.Tensor:
     """Stable ascending order of an int64 key."""
     return torch.sort(key, stable=True).indices
-
-
-def _shifted_ne(x: torch.Tensor) -> torch.Tensor:
-    """[True, x[1:] != x[:-1]]."""
-    out = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-    out[1:] = x[1:] != x[:-1]
-    return out
 
 
 def _blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -198,7 +192,7 @@ def _union_with_birth_and_mean(cand_packed, pos_rows, capacity: int,
     birth_rows = so // per_frame
 
     valid = sp != PACKED_SENTINEL
-    head = valid & _shifted_ne(sp)
+    head = valid & shifted_ne(sp)
     tfill = torch.full_like(birth_rows, n_frames)
     birth = _seg_copy_head(head, torch.where(valid, birth_rows, tfill))
     birth = torch.where(valid, birth.to(torch.int64), tfill)
@@ -209,14 +203,14 @@ def _union_with_birth_and_mean(cand_packed, pos_rows, capacity: int,
     ex2 = None if ex1 is None else ex1[order2]
 
     valid2 = k2 != PACKED_SENTINEL
-    head2 = valid2 & _shifted_ne(k2)
+    head2 = valid2 & shifted_ne(k2)
     urank2 = _blocked_cumsum(head2.to(torch.int32)).to(torch.int64) - 1
     fits = valid2 & (urank2 < capacity - 1)
     fin = torch.where(fits, urank2 + 1, torch.zeros_like(urank2))
 
     # per-(vertex, frame) sub-runs: rows of a key run are frame-ordered
     frame2 = so2 // per_frame
-    head_vf = head2 | _shifted_ne(frame2)
+    head_vf = head2 | shifted_ne(frame2)
     tail_vf = torch.ones_like(head_vf)
     tail_vf[:-1] = head_vf[1:]
     w2 = fits.to(torch.float32)
@@ -283,7 +277,7 @@ def _finish_union(sp, so, birth_rows, capacity: int, n_frames: int):
     """Shared tail of the no-mean unions; ``sp``/``so``/``birth_rows`` are
     the stable key-sorted candidates."""
     valid = sp != PACKED_SENTINEL
-    head = valid & _shifted_ne(sp)
+    head = valid & shifted_ne(sp)
     tfill = torch.full_like(birth_rows, n_frames)
     birth = _seg_copy_head(head, torch.where(valid, birth_rows, tfill))
     birth = torch.where(valid, birth.to(torch.int64), tfill)
@@ -292,7 +286,7 @@ def _finish_union(sp, so, birth_rows, capacity: int, n_frames: int):
     order2 = _sort_perm((birth << 32) | sp)
     b2, k2, so2 = birth[order2], sp[order2], so[order2]
     valid2 = k2 != PACKED_SENTINEL
-    head2 = valid2 & _shifted_ne(k2)
+    head2 = valid2 & shifted_ne(k2)
     urank2 = _blocked_cumsum(head2.to(torch.int32)).to(torch.int64) - 1
     fits = valid2 & (urank2 < capacity - 1)
     fin = torch.where(fits, urank2 + 1, torch.zeros_like(urank2))
@@ -324,20 +318,6 @@ def _union_with_birth_explicit(cand_packed, cand_birth, capacity: int,
                          n_frames)
 
 
-def lookup_select(sorted_packed: torch.Tensor, q: torch.Tensor, payloads=()):
-    """(Q,) packed queries -> (position in ``sorted_packed`` or -1, payloads
-    at the hit or 0): the contract of the JAX package's MXU one-hot lookup,
-    as a binary search."""
-    n = sorted_packed.shape[0]
-    pos = torch.searchsorted(sorted_packed, q)
-    pc = pos.clamp(max=n - 1)
-    hit = (pos < n) & (sorted_packed[pc] == q) & (q != PACKED_SENTINEL)
-    out = torch.where(hit, pc, torch.full_like(pc, -1))
-    vals = tuple(torch.where(hit, p[pc], torch.zeros_like(p[pc]))
-                 for p in payloads)
-    return out, vals
-
-
 def _build_level(packed_final, birth_final, counts, n_frames: int,
                  nbr_rows: int | None = None):
     """Neighbor structure for a finalised level, restricted to the
@@ -348,7 +328,7 @@ def _build_level(packed_final, birth_final, counts, n_frames: int,
     keys = unpack_keys(packed_final)
     nr = cap if nbr_rows is None else min(nbr_rows, cap)
 
-    offs = torch.from_numpy(pm.neighbor_offsets(3)).to(dev, torch.int64)
+    offs = pm.neighbor_offsets_tensor(3, dev)
     n_half = offs.shape[0] // 2
     queries = (keys[:nr, None, :].to(torch.int64)
                + offs[None, :n_half, :]).reshape(nr * n_half, 3)

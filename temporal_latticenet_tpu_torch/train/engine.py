@@ -1,5 +1,6 @@
-"""Offline sequence forward and the BPTT training step (port of the JAX
-package's ``train/engine.py``: ``make_sequence_forward(precompute=True)``,
+"""Sequence forwards, streaming inference and the BPTT training step (port
+of the JAX package's ``train/engine.py``: ``make_sequence_forward``,
+``make_streaming_inference`` and its incremental and batched forms,
 ``create_train_state`` and ``make_train_step``).
 
 The whole sequence's lattice is built in one birth-tagged pass
@@ -9,9 +10,15 @@ row prefixes of the lattice (a Python loop in place of ``lax.scan``), and
 the final frame runs the full model on its own trimmed view.  The training
 step differentiates that forward end to end (backpropagation through time
 over the carried fusion states) under the loss of ``models/losses.py`` and
-takes one AdamW(amsgrad) step.  The streaming per-frame path
-(``precompute=False``), batches of more than one sequence and dropout are
-not ported.
+takes one AdamW(amsgrad) step.  Batches of more than one sequence and
+dropout are not ported.
+
+Streaming inference serves one scan at a time, as a deployed system does:
+the vertex tables and fusion states carry over between frames, and each
+frame is distributed onto the tables (kernel K1) and runs the network on
+per-frame structures, built in full every frame or, on the incremental
+path, updated for the new vertices only.  Its steps keep every count on the
+device: no step reads a tensor on the host.
 """
 
 from __future__ import annotations
@@ -180,12 +187,24 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
 
 def make_sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
                           precompute: bool = True):
-    """The inference entry point: :func:`sequence_forward` with gradients
-    off.  Single sequence: (positions (T,P,3), values (T,P,V), mask (T,P))
-    -> (logp (P, classes), logits, aux) for the last frame."""
+    """The inference entry point, with gradients off.  Single sequence:
+    (positions (T,P,3), values (T,P,V), mask (T,P)) -> (logp (P, classes),
+    logits, aux) for the last frame.  ``precompute=True`` is
+    :func:`sequence_forward` over the whole-sequence lattice;
+    ``precompute=False`` steps :func:`make_streaming_inference` through the
+    frames."""
     if not precompute:
-        raise NotImplementedError(
-            "the streaming per-frame path is not ported to PyTorch yet")
+        new_state_fn, step_fn, final_fn = make_streaming_inference(model, cfg,
+                                                                   rt)
+
+        def stream_forward(positions, values, mask):
+            state = new_state_fn()
+            for f in range(len(positions) - 1):
+                state = step_fn(positions[f], values[f], mask[f], state)
+            logp, sv, _, aux = final_fn(positions[-1], values[-1], mask[-1],
+                                        state)
+            return logp, sv, aux
+        return stream_forward
     fwd = sequence_forward(model, cfg, rt, remat="none")
 
     @torch.no_grad()
@@ -193,6 +212,194 @@ def make_sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
         return fwd(positions, values, mask)
 
     return seq_forward
+
+
+# ---------------------------------------------------------------------------
+# streaming inference
+# ---------------------------------------------------------------------------
+
+def _check_streaming(cfg: ModelConfig):
+    if cfg.experiment != "none" or cfg.compute_dtype != "bfloat16":
+        raise NotImplementedError(
+            "streaming inference is ported for experiment 'none' in bf16 "
+            "only (the per-frame pointnet)")
+
+
+def _frame_inputs(dev, positions, values, mask):
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in (positions, values, mask))
+
+
+def make_streaming_inference(model: LNNSeq, cfg: ModelConfig,
+                             rt: RuntimeConfig):
+    """Online (frame-at-a-time) inference: every frame is distributed onto
+    the carried vertex tables and builds every level's neighbor table and
+    coarse link in full.
+
+    Returns ``(new_state_fn, step_fn, final_fn)``:
+      new_state_fn()                        -> fresh SeqState with tables
+      step_fn(pos, vals, mask, state)       -> state (early return)
+      final_fn(pos, vals, mask, state)      -> (logp, logits, state, aux)
+    Frames are (P, 3), (P, V), (P,), numpy arrays or tensors; they move to
+    the model's device.
+    """
+    _check_streaming(cfg)
+    dev = model.device
+
+    def new_state_fn():
+        return init_state(cfg, rt, dev, tables=True)
+
+    @torch.no_grad()
+    def step_fn(positions, values, mask, state):
+        p, v, m = _frame_inputs(dev, positions, values, mask)
+        _, state, _ = model(state, positions=p, values=v, mask=m,
+                            final=False)
+        return state
+
+    @torch.no_grad()
+    def final_fn(positions, values, mask, state):
+        p, v, m = _frame_inputs(dev, positions, values, mask)
+        (logp, sv), state, aux = model(state, positions=p, values=v, mask=m,
+                                       final=True)
+        return logp, sv, state, aux
+
+    return new_state_fn, step_fn, final_fn
+
+
+def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
+                                         rt: RuntimeConfig,
+                                         max_new: int = 8192):
+    """Streaming inference with incremental structure updates, the fast
+    serving path: after the first frame only the at most ``max_new`` new
+    vertices of each level get neighbor-table rows and link rows
+    (``lattice_ops.update_neighbor_table``,
+    ``grow_coarse_table_incremental``), patched into the carried
+    structures.  A frame that adds more sets the sticky
+    ``FrameStructures.overflowed``.
+
+    Returns ``(new_fn, step_full, step_inc, final_inc)``; the caller picks
+    the branch (``step_full`` for the first frame, whose growth exceeds the
+    bound, ``step_inc`` afterwards):
+      new_fn()                              -> (SeqState, FrameStructures)
+      step_*(pos, vals, mask, state, fs)    -> (state, fs)
+      final_inc(pos, vals, mask, state, fs) -> (logp, logits, state, fs, aux)
+    """
+    _check_streaming(cfg)
+    dev = model.device
+    L = cfg.nr_downsamples
+    caps = rt.capacities(L)
+
+    def new_fn():
+        fs = lo.FrameStructures(
+            nbrs=tuple(lo.NeighborTable(
+                idx=torch.zeros((c, 9), dtype=torch.int64, device=dev),
+                found=torch.zeros((c, 9), dtype=torch.bool, device=dev))
+                for c in caps),
+            links=tuple(lo.LevelLink(
+                corner_idx=torch.zeros((caps[i], 4), dtype=torch.int64,
+                                       device=dev),
+                corner_bary=torch.zeros((caps[i], 4), device=dev))
+                for i in range(L)),
+            counts=tuple(torch.ones((), dtype=torch.int64, device=dev)
+                         for _ in caps),
+            overflowed=torch.zeros((), dtype=torch.bool, device=dev))
+        return init_state(cfg, rt, dev, tables=True), fs
+
+    def advance(state, positions, mask, fs, incremental: bool):
+        """Distribute the frame, then build (full) or patch (incremental)
+        every level's structures."""
+        old = [tb.count for tb in state.tables]
+        t0, dist = lo.distribute(state.tables[0], positions, mask, rt.sigma)
+        tabs = [t0]
+        if not incremental:
+            nbrs, links = [lo.build_neighbor_table(t0)], []
+            for i in range(L):
+                c, link = lo.grow_coarse_table(tabs[i], state.tables[i + 1])
+                tabs.append(c)
+                links.append(link)
+                nbrs.append(lo.build_neighbor_table(c))
+            overflowed = fs.overflowed
+        else:
+            nbrs, links = list(fs.nbrs), list(fs.links)
+            nbrs[0] = lo.update_neighbor_table(t0, nbrs[0], old[0], max_new)
+            for i in range(L):
+                c, links[i] = lo.grow_coarse_table_incremental(
+                    tabs[i], state.tables[i + 1], old[i], links[i], max_new)
+                tabs.append(c)
+                nbrs[i + 1] = lo.update_neighbor_table(c, nbrs[i + 1],
+                                                       old[i + 1], max_new)
+            grew = torch.stack([tb.count - o for tb, o in zip(tabs, old)])
+            overflowed = fs.overflowed | (grew > max_new).any()
+        fs = lo.FrameStructures(nbrs=tuple(nbrs), links=tuple(links),
+                                counts=tuple(tb.count for tb in tabs),
+                                overflowed=overflowed)
+        return dataclasses.replace(state, tables=tuple(tabs)), fs, dist
+
+    def make_step(incremental: bool, final: bool):
+        @torch.no_grad()
+        def fn(positions, values, mask, state, fs):
+            p, v, m = _frame_inputs(dev, positions, values, mask)
+            state, fs, dist = advance(state, p, m, fs, incremental)
+            out, state, aux = model(state, fs, dist, values=v, final=final)
+            if final:
+                return out[0], out[1], state, fs, aux
+            return state, fs
+        return fn
+
+    return new_fn, make_step(False, False), make_step(True, False), \
+        make_step(True, True)
+
+
+def make_streaming_inference_batched(model: LNNSeq, cfg: ModelConfig,
+                                     rt: RuntimeConfig, mesh=None,
+                                     incremental: bool = False,
+                                     max_new: int = 8192):
+    """B concurrent streams, each with its own state (and, with
+    ``incremental``, its own ``FrameStructures``), stepped in turn on the
+    model's device; per-stream outputs equal the single-stream path's.
+
+    Returns ``(new_states_fn, step_fn, final_fn)``, with ``incremental``
+    ``(new_states_fn, step_full_fn, step_fn, final_fn)``:
+      new_states_fn(B)                           -> carry (a list of B states)
+      step_fn(pos (B,P,3), vals (B,P,V), mask (B,P), carry) -> carry
+      final_fn(...)  -> (logp (B,P,K), logits (B,P,K), carry, aux stacked)
+    A ``mesh`` (the JAX package's sharding of the streams over devices) is
+    not ported.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharding the streams over a device mesh is not ported to "
+            "PyTorch yet")
+    # each stream's carry as the single-stream functions take it, unpacked
+    if incremental:
+        new1, full1, step1, final1 = make_streaming_inference_incremental(
+            model, cfg, rt, max_new)
+        args, carry_of = (lambda c: c), (lambda out: out[2:4])
+    else:
+        new1, step1, final1 = make_streaming_inference(model, cfg, rt)
+        args, carry_of = (lambda c: (c,)), (lambda out: out[2])
+
+    def new_states_fn(b: int):
+        return [new1() for _ in range(b)]
+
+    def stepper(fn):
+        def step_fn(positions, values, mask, carry):
+            return [fn(positions[i], values[i], mask[i], *args(c))
+                    for i, c in enumerate(carry)]
+        return step_fn
+
+    def final_fn(positions, values, mask, carry):
+        outs = [final1(positions[i], values[i], mask[i], *args(c))
+                for i, c in enumerate(carry)]
+        aux = {k: torch.stack([torch.as_tensor(o[-1][k]) for o in outs])
+               for k in outs[0][-1]}
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]),
+                [carry_of(o) for o in outs], aux)
+
+    if incremental:
+        return new_states_fn, stepper(full1), stepper(step1), final_fn
+    return new_states_fn, stepper(step1), final_fn
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,8 @@ from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
 from temporal_latticenet_tpu_torch.models.fusion import make_fusion
 from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
 from temporal_latticenet_tpu_torch.train.convert import params_from_jax
-from temporal_latticenet_tpu_torch.train.engine import make_sequence_forward
+from temporal_latticenet_tpu_torch.train.engine import (
+    make_sequence_forward, make_streaming_inference_batched)
 
 ROOT = Path(__file__).resolve().parents[1]
 P = 1024
@@ -139,10 +140,14 @@ def test_unported_paths_raise():
     cfg, rt = ModelConfig(), RuntimeConfig(**RT)
     model = LNNSeq(cfg, rt, device="cpu")
     with pytest.raises(NotImplementedError):
-        make_sequence_forward(model, cfg, rt, precompute=False)
-    with pytest.raises(NotImplementedError):
         make_sequence_forward(
             model, cfg, dataclasses.replace(rt, batched_pointnet=False))
+    # streams sharded over a device mesh, and the float32 per-frame pointnet
+    with pytest.raises(NotImplementedError):
+        make_streaming_inference_batched(model, cfg, rt, mesh=object())
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with pytest.raises(NotImplementedError):
+        make_sequence_forward(model, f32, rt, precompute=False)
     for kind in ("lstm", "cga", "maxpool", "linear"):
         with pytest.raises(NotImplementedError):
             make_fusion(kind, 64, cfg)
