@@ -70,7 +70,31 @@ Phases, in order; any failure exits non-zero without the final line:
     indices of every frame equal, log-probabilities of both paths within
     the bf16 tolerance, and two streams stepped together on the card equal
     to each stream alone;
-12. one JSON line with the kernels, the device line, and the result line
+12. lstm-maxpool-cga-linear (every other fusion kind, and the early
+    maxpool) at phase 4's geometry, bf16, batched pointnet: the launches of
+    every kernel in one forward (K1-K4), ``CONFIG_ITERS`` timed forwards,
+    the device time and launches per sequence, one warm and
+    ``CONFIG_STEPS`` timed training steps on the default (K4) route with
+    their peak memory and device time, and card vs CPU at the reduced
+    geometry;
+13. BASELINE configs 1-3 at the same geometry: one frame with
+    ``sequence_learning=False``; the same model on three scans
+    concatenated into one cloud of 3 x 131,072 padded points (no vertex
+    overflow); gru-gru-gru-gru over 3 frames.  Each: kernel launches (K1-K4
+    each at least once), seconds and device time per forward, and card vs
+    CPU on the same cut of phase 6's reduced sequence (config 2: one cloud
+    of 3 x 4,096 points);
+14. the flagship's weights in float32 on the non-batched route with
+    ``reference_bary_quirk`` (the per-frame float32 scatter max and
+    argmax; K1-K3): launches, seconds and device time per sequence, its
+    log-probabilities beside the bf16 flagship's (reported, not gated), and
+    card vs CPU at the reduced geometry: the last frame's pointnet maxima
+    within 1e-4 (the entries whose winning row differs counted), the
+    log-probabilities within 1e-2;
+15. phase 8 also reports the deform slice's gather backward
+    (``indexing_backward_kernel``, once a 21.48 ms launch): no single
+    launch of it may take over 1 ms;
+16. one JSON line with the kernels, the device line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero when CUDA is unavailable.
@@ -133,6 +157,23 @@ STREAM_RT = dict(max_points=131072, capacity_level0=49152,
 MAX_NEW = 8192         # the incremental path's growth bound per frame
 STREAM_SEQS = 12       # timed sequences per streaming path
 PROFILE_STREAM_SEQS = 2
+# the sorted accumulate of index_put_ (autograd's gather backward and the
+# port's segment_sum on CUDA): no single launch of it in the training step
+# may take longer (the deform slice's gather backward took 21.48 ms)
+DEFORM_GATHER_BWD = "indexing_backward_kernel"
+DEFORM_GATHER_BWD_MS = 1.0
+# phases 12-15: the other model configurations at the bench geometry
+ALL_KINDS = ("lstm", "maxpool", "cga", "linear")
+CONFIG_ITERS = 10      # timed forwards per configuration
+CONFIG_PROFILE = 2     # forwards per configuration under torch.profiler
+CONFIG_STEPS = 3       # timed training steps of the all-kinds model
+# the float32 per-frame route held against itself on the CPU: float32
+# products and sums in other orders.  The last frame's pointnet maxima
+# (measured 1.3e-5, no winning row changed) and the log-probabilities after
+# 19 lattice convolutions over 4 frames of random-weight activations
+# (measured 0.00245)
+F32_MAX_ATOL = 1e-4
+F32_LOGP_ATOL = 1e-2
 
 KERNELS = {
     "fused_simplex_pack": dict(
@@ -560,12 +601,14 @@ def lidar(p: int, seed: int = 0):
     return pos, val, mask
 
 
-def make_forward(rt_kw, device, state_dict=None):
+def make_forward(rt_kw, device, state_dict=None, cfg=None):
+    """The model of ``cfg`` (default: the flagship) from seed 0 or
+    ``state_dict``, its no-gradient offline forward, and the runtime."""
     from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
     from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
     from temporal_latticenet_tpu_torch.train.engine import make_sequence_forward
 
-    cfg, rt = ModelConfig(), RuntimeConfig(**rt_kw)
+    cfg, rt = cfg or ModelConfig(), RuntimeConfig(**rt_kw)
     model = LNNSeq(cfg, rt, device=device, seed=0)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
@@ -721,6 +764,22 @@ def device_summary(events, wall_us, n: int, per: str) -> dict:
                          f"calls_per_{per}": v[1] / n} for k, v in top]}
 
 
+def largest_launches(events, n: int = 8):
+    """The ``n`` longest single device events, by name and ms."""
+    top = sorted(events, key=lambda e: -e.time_range.elapsed_us())[:n]
+    return [{"name": e.name[:120], "ms": e.time_range.elapsed_us() / 1e3}
+            for e in top]
+
+
+def named_entries(events, substring: str, calls: int) -> dict:
+    """Launches and device ms per call, and the longest single launch, of
+    the device events whose name holds ``substring``."""
+    ms = [e.time_range.elapsed_us() / 1e3 for e in events
+          if substring in e.name]
+    return dict(name=substring, launches_per_call=len(ms) / calls,
+                ms_per_call=sum(ms) / calls, longest_ms=max(ms, default=0.0))
+
+
 def _structure_diff(a, b, prefix=""):
     """Names of integer/bool fields that differ, and the largest float
     difference, between two lattices (dataclasses of tensors)."""
@@ -748,12 +807,16 @@ def _structure_diff(a, b, prefix=""):
     return bad, fmax
 
 
-def card_vs_cpu(dev):
+def card_vs_cpu(dev, cfg=None, rt_kw=SMALL_RT, atol=LOGP_ATOL, data=None):
+    """The forward of ``cfg`` (default: the flagship) on the card and on the
+    CPU at the reduced geometry, on ``data`` (default: the reduced
+    sequence), log-probabilities within ``atol``."""
     from temporal_latticenet_tpu_torch.ops import seq_lattice as sl
 
-    data = lidar(SMALL_RT["max_points"])
-    cpu_model, cpu_fwd, rt = make_forward(SMALL_RT, "cpu")
-    _, dev_fwd, _ = make_forward(SMALL_RT, dev, cpu_model.state_dict())
+    if data is None:
+        data = lidar(rt_kw["max_points"])
+    cpu_model, cpu_fwd, rt = make_forward(rt_kw, "cpu", cfg=cfg)
+    _, dev_fwd, _ = make_forward(rt_kw, dev, cpu_model.state_dict(), cfg)
     lats = [sl.build_sequence_lattice(
         torch.as_tensor(data[0], device=d), torch.as_tensor(data[2], device=d),
         rt.sigma, rt.capacities(2), 2,
@@ -771,12 +834,11 @@ def card_vs_cpu(dev):
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
     if not torch.equal(aux_c["point_vertex"], aux_d["point_vertex"].cpu()):
         raise AssertionError("point_vertex differs card vs CPU")
-    if d > LOGP_ATOL or agree < ARGMAX_AGREE:
+    if d > atol or agree < ARGMAX_AGREE:
         raise AssertionError(f"log-probabilities differ card vs CPU: max "
                              f"{d}, argmax agreement {agree}")
-    return dict(points=SMALL_RT["max_points"], lattice_float_max_diff=float_max,
-                logp_max_abs_diff=d, argmax_agreement=agree,
-                logp_atol=LOGP_ATOL)
+    return dict(points=rt_kw["max_points"], lattice_float_max_diff=float_max,
+                logp_max_abs_diff=d, argmax_agreement=agree, logp_atol=atol)
 
 
 # ---------------------------------------------------------------------------
@@ -822,11 +884,12 @@ def packed_forward(dev, data, model, fwd, rt):
 # phases 8 and 9: the training step
 # ---------------------------------------------------------------------------
 
-def make_trainer(rt_kw, device, state_dict=None):
+def make_trainer(rt_kw, device, state_dict=None, cfg=None):
     from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
     from temporal_latticenet_tpu_torch.train import engine
 
-    cfg, rt = ModelConfig(), RuntimeConfig(**rt_kw, remat_mode="full")
+    cfg = cfg or ModelConfig()
+    rt = RuntimeConfig(**rt_kw, remat_mode="full")
     model, state = engine.create_train_state(cfg, rt, 1e-3, 1e-3, seed=0,
                                              device=device)
     if state_dict is not None:
@@ -891,6 +954,13 @@ def train_flagship(dev, forward_launches):
         raise AssertionError(f"zero or non-finite gradients: {dead}")
     if not bool(torch.isfinite(logp).all()):
         raise AssertionError("non-finite log-probabilities")
+    # the deform slice's gather backward: one 21.5 ms launch of the sorted
+    # accumulate while it was autograd's (every masked point's rows read
+    # vertex 0); now a segment_sum that leaves those rows out
+    gather_bwd = named_entries(events, DEFORM_GATHER_BWD, PROFILE_STEPS)
+    if gather_bwd["longest_ms"] > DEFORM_GATHER_BWD_MS:
+        raise AssertionError(f"a {DEFORM_GATHER_BWD} launch took "
+                             f"{gather_bwd['longest_ms']} ms")
     return dict(steps=TRAIN_STEPS, seconds_per_step=statistics.median(secs),
                 quartiles=quartiles(secs), seconds_all=secs,
                 peak_mem_gb=peak_gb, losses=losses, grad_norms=norms,
@@ -898,7 +968,8 @@ def train_flagship(dev, forward_launches):
                 vertex_overflow=bool(m["vertex_overflow"]),
                 param_grad_norm_min=min(v for k, v in param_norms.items()
                                         if not k.endswith(UNREAD_PARAMS)),
-                profiled_steps=PROFILE_STEPS,
+                profiled_steps=PROFILE_STEPS, deform_gather_backward=gather_bwd,
+                largest_launches=largest_launches(events),
                 **device_summary(events, wall_us, PROFILE_STEPS, "step"))
 
 
@@ -1248,6 +1319,201 @@ def streaming_card_vs_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 12-15: the other model configurations
+# ---------------------------------------------------------------------------
+
+def model_config(**kw):
+    from temporal_latticenet_tpu_torch.config import ModelConfig
+    return ModelConfig(**kw)
+
+
+def config_forward(data, fwd, rt, required):
+    """One configuration's offline forward at full width: the launches of
+    every kernel during one forward (each of ``required`` at least once),
+    the output checked, ``CONFIG_ITERS`` timed forwards, and the device time
+    per sequence under ``torch.profiler``.  Returns (logp, result)."""
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    pos, val, mask = data
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    logp, _, aux = fwd(pos, val, mask)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    occ = check_output(logp, aux, rt, mask[-1])
+    if bool(aux["vertex_overflow"]):
+        raise AssertionError("vertex overflow")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on this path: {missing}")
+    secs = []
+    for _ in range(CONFIG_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(pos, val, mask)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    events, wall_us = device_events(lambda: fwd(pos, val, mask),
+                                    CONFIG_PROFILE)
+    return logp, dict(
+        launches=launches, occupancy=occ, frames=len(pos),
+        points_per_frame=int(pos.shape[1]),
+        seconds_per_seq=statistics.median(secs), quartiles=quartiles(secs),
+        seconds_all=secs, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profiled_forwards=CONFIG_PROFILE,
+        **device_summary(events, wall_us, CONFIG_PROFILE, "seq"))
+
+
+def all_kinds(dev, data):
+    """Phase 12: lstm-maxpool-cga-linear (every other fusion kind, and the
+    early maxpool), 4 frames, bf16, batched pointnet (K1-K4): the forward,
+    one training step on the default (K4) route, and card vs CPU."""
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    cfg = model_config(rnn_modules=ALL_KINDS)
+    model, fwd, rt = make_forward(FLAGSHIP_RT, dev, cfg=cfg)
+    _, res = config_forward(data, fwd, rt, FORWARD_KERNELS)
+    del model, fwd
+    torch.cuda.empty_cache()
+
+    _, state, train_step = make_trainer(FLAGSHIP_RT, dev, cfg=cfg)
+    batch = train_batch(FLAGSHIP_RT["max_points"], dev)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    state, _, m = train_step(state, batch, 1.0)              # warm step
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the training step: "
+                             f"{missing}")
+    losses, secs = [float(m["loss"])], []
+    for _ in range(CONFIG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, m = train_step(state, batch, 1.0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    events, wall_us = device_events(lambda: train_step(state, batch, 1.0), 1)
+    res["train"] = dict(
+        launches=launches, losses=losses,
+        seconds_per_step=statistics.median(secs), seconds_all=secs,
+        peak_mem_gb=peak, largest_launches=largest_launches(events),
+        deform_gather_backward=named_entries(events, DEFORM_GATHER_BWD, 1),
+        **device_summary(events, wall_us, 1, "step"))
+    del state, train_step
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = card_vs_cpu(dev, cfg)
+    return res
+
+
+def baseline_configs(dev, data):
+    """Phase 13: BASELINE configs 1-3 at full width (K1-K4 each):
+    1, one frame with ``sequence_learning=False``; 2, the same model on
+    three scans concatenated into one cloud of 3 x 131,072 padded points
+    (the accumulated-cloud semantics); 3, gru-gru-gru-gru over 3 frames.
+    Each also card vs CPU on the same cut of the reduced sequence."""
+    def first(d):
+        return tuple(a[:1] for a in d)
+
+    def concat3(d):
+        return tuple(a[:3].reshape((1, -1) + a.shape[2:]) for a in d)
+
+    def first3(d):
+        return tuple(a[:3] for a in d)
+
+    single = model_config(sequence_learning=False, frames_per_seq=1,
+                          rnn_modules=("gru",) * 4)
+    # (config, frames of a sequence, points per frame over the sequence's)
+    cases = {
+        "config1_single_frame": (single, first, 1),
+        "config2_accumulated_clouds": (single, concat3, 3),
+        "config3_gru_frames3": (
+            model_config(frames_per_seq=3, rnn_modules=("gru",) * 4),
+            first3, 1),
+    }
+    small = lidar(SMALL_RT["max_points"])
+    res = {}
+    for name, (cfg, frames, scale) in cases.items():
+        rt_kw = dict(FLAGSHIP_RT, max_points=scale * FLAGSHIP_RT["max_points"])
+        model, fwd, rt = make_forward(rt_kw, dev, cfg=cfg)
+        _, res[name] = config_forward(frames(data), fwd, rt, FORWARD_KERNELS)
+        del model, fwd
+        torch.cuda.empty_cache()
+        res[name]["card_vs_cpu"] = card_vs_cpu(
+            dev, cfg, dict(SMALL_RT, max_points=scale * SMALL_RT["max_points"]),
+            data=frames(small))
+    return res
+
+
+def per_frame_f32(dev, data, state_dict):
+    """Phase 14: the flagship in float32 on the non-batched route with
+    ``reference_bary_quirk`` (the faithful evaluation of a reference-trained
+    checkpoint): per frame, the pointnet's float32 scatter max and argmax
+    over the frame's rows (K1-K3 in the lattice build, K2 in every
+    coarsen; no K4).  The flagship's weights; its log-probabilities beside
+    the bf16 flagship's (reported, not gated); card vs CPU."""
+    _, flagship, _ = make_forward(FLAGSHIP_RT, dev, state_dict)
+    logp_bf16 = flagship(*data)[0]
+    del flagship
+    cfg = model_config(compute_dtype="float32", reference_bary_quirk=True)
+    rt_kw = dict(FLAGSHIP_RT, batched_pointnet=False)
+    model, fwd, rt = make_forward(rt_kw, dev, state_dict, cfg)
+    logp, res = config_forward(data, fwd, rt, FORWARD_KERNELS[:3])
+    del model, fwd
+    torch.cuda.empty_cache()
+    res["vs_bf16_flagship"] = logp_stats(logp, logp_bf16, data[2][-1])
+    small = dict(SMALL_RT, batched_pointnet=False)
+    res["card_vs_cpu"] = card_vs_cpu(dev, cfg, small, F32_LOGP_ATOL)
+    res["pointnet_card_vs_cpu"] = per_frame_pointnet_card_vs_cpu(dev, cfg,
+                                                                 small)
+    return res
+
+
+def per_frame_pointnet_card_vs_cpu(dev, cfg, rt_kw):
+    """The last frame's float32 per-frame pointnet on the card and on the
+    CPU, on each device's own sequence lattice: the maxima within
+    ``F32_MAX_ATOL``, and the (vertex, channel) entries whose barycentric
+    weight differs (another winning row), counted."""
+    import copy
+
+    from temporal_latticenet_tpu_torch.config import RuntimeConfig
+    from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
+    from temporal_latticenet_tpu_torch.train.engine import sequence_lattice
+
+    rt = RuntimeConfig(**rt_kw)
+    pn = LNNSeq(cfg, rt, device="cpu", seed=0).point_net_seq
+    data = lidar(rt_kw["max_points"])
+    out = {}
+    for d, mod in (("cpu", pn), (dev, copy.deepcopy(pn).to(dev))):
+        pos, val, mask = (torch.as_tensor(a, device=d) for a in data)
+        t = pos.shape[0] - 1
+        with torch.no_grad():
+            lat, _, _ = sequence_lattice(cfg, rt, pos, val, mask)
+            dist = lat.distribute_out().frame(t)
+            rows = val[t].repeat_interleave(4, dim=0) * dist.row_valid[:, None]
+            out[d] = mod.reduce_frame(dist, rows, rt.capacities(2)[0],
+                                      lat.levels[0].counts[t],
+                                      lat.nr_points[t]).cpu()
+    a, b = out["cpu"], out[dev]
+    c = a.shape[1] // 2
+    mx_diff = float((a[:, :c] - b[:, :c]).abs().max())
+    differ = int((a[:, c:] != b[:, c:]).sum())
+    if mx_diff > F32_MAX_ATOL:
+        raise AssertionError(f"float32 pointnet maxima differ card vs CPU: "
+                             f"{mx_diff}")
+    return dict(max_abs_diff=mx_diff, max_atol=F32_MAX_ATOL,
+                bary_entries_differ=differ,
+                entries=int(a[:, c:].count_nonzero()))
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1345,6 +1611,34 @@ def main(argv=None) -> int:
                     f"{r['peak_mem_gb']:.2f} GB; growth "
                     f"{r['growth_per_frame']}")
         phase("streaming_card_vs_cpu", lambda: streaming_card_vs_cpu(dev))
+        torch.cuda.empty_cache()
+        kinds = phase("all_kinds", lambda: all_kinds(dev, data))
+        if kinds:
+            log(f"[all_kinds] {kinds['seconds_per_seq']:.4f} s/seq (quartiles "
+                f"{kinds['quartiles']}), {kinds['device_ms_per_seq']:.2f} "
+                f"device ms and {kinds['device_launches_per_seq']:.0f} "
+                f"launches per seq on {dline}; launches {kinds['launches']}; "
+                f"step {kinds['train']['seconds_per_step']:.4f} s, "
+                f"{kinds['train']['device_ms_per_step']:.2f} device ms, peak "
+                f"{kinds['train']['peak_mem_gb']:.2f} GB; card vs CPU "
+                f"{json.dumps(kinds['card_vs_cpu'])}")
+        base = phase("baseline_configs", lambda: baseline_configs(dev, data))
+        for name, r in (base or {}).items():
+            log(f"[baseline_configs] {name}: {r['seconds_per_seq']:.4f} s "
+                f"(quartiles {r['quartiles']}), {r['device_ms_per_seq']:.2f} "
+                f"device ms, {r['device_launches_per_seq']:.0f} launches per "
+                f"forward on {dline}; occupancy {r['occupancy']}; launches "
+                f"{r['launches']}; card vs CPU {json.dumps(r['card_vs_cpu'])}")
+        f32 = phase("per_frame_f32", lambda: per_frame_f32(dev, data,
+                                                           weights))
+        if f32:
+            log(f"[per_frame_f32] {f32['seconds_per_seq']:.4f} s/seq "
+                f"(quartiles {f32['quartiles']}), "
+                f"{f32['device_ms_per_seq']:.2f} device ms and "
+                f"{f32['device_launches_per_seq']:.0f} launches per seq on "
+                f"{dline}; launches {f32['launches']}; vs the bf16 flagship "
+                f"{json.dumps(f32['vs_bf16_flagship'])}; card vs CPU "
+                f"{json.dumps(f32['card_vs_cpu'])}")
 
     # launches: the training step (this slice's path, on the packed route);
     # the forwards' counts beside them
@@ -1376,6 +1670,15 @@ def main(argv=None) -> int:
                 "device_ms_per_seq"),
             main_path_device_ms_per_step=(on_step.get(name) or {}).get(
                 "device_ms_per_step"),
+            launches_all_kinds=((report.get("all_kinds") or {}).get(
+                "launches") or {}).get(name, 0),
+            launches_all_kinds_step=((report.get("all_kinds") or {}).get(
+                "train") or {}).get("launches", {}).get(name, 0),
+            launches_baseline_configs={
+                k: (v.get("launches") or {}).get(name, 0)
+                for k, v in (report.get("baseline_configs") or {}).items()},
+            launches_per_frame_f32=((report.get("per_frame_f32") or {}).get(
+                "launches") or {}).get(name, 0),
             cases=k.get("cases")))
     report["device_line"] = dline
     if args.out:

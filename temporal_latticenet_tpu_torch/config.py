@@ -95,7 +95,7 @@ class RuntimeConfig:
     sigma: float = 0.6
     compute_dtype: str = "float32"
     # pointnet MLP + packed max for all frames at once over the
-    # union-sorted rows (the only pointnet path of the port)
+    # union-sorted rows (bf16 only); otherwise per frame over its own rows
     batched_pointnet: bool = True
     remat_mode: str = "full"
     # capacity of the trimmed (non-final) frames; 0 disables

@@ -259,8 +259,9 @@ class DeformSlice(nn.Module):
     def forward(self, values, point_vertex, point_bary):
         p, dp1 = point_vertex.shape
         # out-of-range indices (only under a flagged trim overflow) clamp
-        # like a JAX gather
-        g = values[point_vertex.clamp(max=values.shape[0] - 1)]
+        # like a JAX gather; the backward leaves out the rows that read the
+        # invalid row 0 (``values`` is mask_rows-clean)
+        g = lo.gather_rows(values, point_vertex.clamp(max=values.shape[0] - 1))
         bary = point_bary
         if self.deform:
             feats = g.reshape(p, -1)

@@ -1,5 +1,5 @@
-"""Temporal fusion modules of the flagship configuration (port of the JAX
-package's ``models/fusion.py``: GRU and AFlow).
+"""Temporal fusion modules (port of the JAX package's ``models/fusion.py``:
+GRU, LSTM, CGA, MaxPool, Linear and AFlow).
 
 Uniform call: ``out, new_h = module(lv, h, prev_count, count, is_first,
 nbr)``.  The hidden value array ``h`` is carried at static capacity;
@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ..ops import lattice_ops as lo
-from .blocks import Linear, uniform_
+from .blocks import Conv1x1, Gn, Linear, uniform_
 
 
 def _pad_hidden(h, prev_count, value: float):
@@ -68,6 +68,112 @@ class GRUFusion(nn.Module):
         else:
             hh = _pad_hidden(self.hidden_linear(h), prev_count, 0.0)
             out = self.GRU(lv, hh)
+        out = lo.mask_rows(out, count)
+        return out, out
+
+
+class _LSTMCell(nn.Module):
+    """torch.nn.LSTMCell equations, gate order [i, f, g, o], two bias
+    vectors; parameters in torch.nn.LSTMCell's layout and names."""
+
+    def __init__(self, input_size: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden, input_size))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden, hidden))
+        self.bias_ih = nn.Parameter(torch.empty(4 * hidden))
+        self.bias_hh = nn.Parameter(torch.empty(4 * hidden))
+
+    def init_weights(self, gen):
+        bound = 1.0 / math.sqrt(self.hidden)
+        for p in (self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh):
+            uniform_(p, bound, gen)
+
+    def forward(self, x, h, c):
+        g = (lo.matmul_f32(x, self.weight_ih.t()) + self.bias_ih
+             + lo.matmul_f32(h, self.weight_hh.t()) + self.bias_hh)
+        i, f, gg, o = g.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+class LSTMFusion(nn.Module):
+    """h <- Linear(h), zero-padded, then a per-vertex LSTM cell whose cell
+    state is always zero and whose new cell state is discarded (reference
+    quirk)."""
+
+    def __init__(self, input_size: int, channels: int):
+        super().__init__()
+        self.hidden_linear = Linear(channels, channels)
+        self.lstm = _LSTMCell(input_size, channels)
+
+    def forward(self, lv, h, prev_count, count, is_first, nbr=None):
+        if is_first:
+            out = lv
+        else:
+            hh = _pad_hidden(self.hidden_linear(h), prev_count, 0.0)
+            out, _ = self.lstm(lv, hh, torch.zeros_like(hh))
+        out = lo.mask_rows(out, count)
+        return out, out
+
+
+class CGAFusion(nn.Module):
+    """Cross-frame global attention: the hidden state gates the current
+    features.  Reference quirks kept: the same 1x1 conv (no bias) is applied
+    twice, the "global average pool" is the scalar 1/(count + channels), and
+    the gates of vertices new since the previous frame are one."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.channels = channels
+        self.hidden_linear = Linear(channels, channels)
+        self.conv = Conv1x1(channels, channels, bias=False)
+        self.groupnorm = Gn(channels)
+
+    def forward(self, lv, h, prev_count, count, is_first, nbr=None):
+        if is_first:
+            out = lv
+        else:
+            hh = _pad_hidden(self.hidden_linear(h), prev_count, 0.0)
+            g = torch.relu(self.conv(hh, count))
+            g = self.conv(self.groupnorm(g, count), count)
+            n = torch.as_tensor(count, device=g.device).to(torch.float32)
+            g = torch.sigmoid(g * (1.0 / (n + self.channels)))
+            rows = torch.arange(lv.shape[0], device=lv.device)
+            g = torch.where((rows >= prev_count)[:, None],
+                            torch.ones((), device=g.device), g)
+            out = g * lv
+        out = lo.mask_rows(out, count)
+        return out, out
+
+
+class MaxPoolFusion(nn.Module):
+    """Elementwise max with the hidden state; vertices new since the
+    previous frame read the -9999 pad.  No parameters."""
+
+    def forward(self, lv, h, prev_count, count, is_first, nbr=None):
+        if is_first:
+            out = lv
+        else:
+            out = torch.maximum(_pad_hidden(h, prev_count, -9999.0), lv)
+        out = lo.mask_rows(out, count)
+        return out, out
+
+
+class LinearFusion(nn.Module):
+    """lv <- ReLU(Linear(cat[Linear(h) zero-padded, lv]))."""
+
+    def __init__(self, input_size: int, channels: int):
+        super().__init__()
+        self.hidden_linear = Linear(channels, channels)
+        self.linear = Linear(channels + input_size, channels)
+
+    def forward(self, lv, h, prev_count, count, is_first, nbr=None):
+        if is_first:
+            out = lv
+        else:
+            hh = _pad_hidden(self.hidden_linear(h), prev_count, 0.0)
+            out = torch.relu(self.linear(torch.cat([hh, lv], dim=-1)))
         out = lo.mask_rows(out, count)
         return out, out
 
@@ -148,19 +254,24 @@ class AFlowFusion(nn.Module):
 
 
 def make_fusion(kind: str, channels: int, cfg=None, input_size: int = None):
-    """A fusion module by its cfg name; None for "none".  Only the kinds of
-    the flagship configuration are ported."""
+    """A fusion module by its cfg name; None for "none".  ``input_size`` is
+    the width of the fused features when it differs from ``channels``."""
     if kind == "none":
         return None
+    inp = channels if input_size is None else input_size
     if kind == "gru":
-        return GRUFusion(channels if input_size is None else input_size,
-                         channels)
+        return GRUFusion(inp, channels)
+    if kind == "lstm":
+        return LSTMFusion(inp, channels)
+    if kind == "linear":
+        return LinearFusion(inp, channels)
+    if kind == "cga":
+        return CGAFusion(channels)
+    if kind == "maxpool":
+        return MaxPoolFusion()
     if kind == "aflow":
         return AFlowFusion(
             channels,
             train_alpha_beta=(cfg.train_alpha_beta if cfg else True),
             use_center=(cfg.use_center if cfg else True))
-    if kind in ("lstm", "cga", "maxpool", "linear"):
-        raise NotImplementedError(
-            f"fusion {kind!r} is not ported to PyTorch yet")
     raise ValueError(f"unknown fusion {kind!r}")

@@ -12,12 +12,13 @@ restores the intended architecture).
 
 A frame takes its lattice structure from one of three sources: the
 precomputed whole-sequence lattice of ``ops.seq_lattice`` (the offline
-path, with the batched pointnet's reduced tensor; the state holds no
+path, with the batched pointnet's reduced tensor or, on the non-batched
+route, the frame's ``DistributeOut`` and values; the state holds no
 tables), the streaming incremental path's ``FrameStructures`` with the
 frame's ``DistributeOut`` (built by the engine), or neither: the frame is
 distributed onto the per-level vertex tables carried in the state, and
-every level's neighbor table and coarse link is built in full.  On the
-streaming paths the pointnet runs per frame.
+every level's neighbor table and coarse link is built in full.  Without a
+pre-reduced tensor the pointnet runs per frame.
 """
 
 from __future__ import annotations
@@ -208,8 +209,9 @@ class LNNSeq(nn.Module):
                 values=None, mask=None):
         """One frame.  The structure comes from ``seqlat``: the precomputed
         sequence lattice (a full or trimmed view, with this frame's
-        ``DistributeOut`` ``dist`` and ``pre_reduced``, its (cap0, 2*C)
-        slice of :meth:`reduce_pointnet`), a ``FrameStructures`` (with
+        ``DistributeOut`` ``dist`` and either ``pre_reduced``, its (cap0,
+        2*C) slice of :meth:`reduce_pointnet`, or the frame's (P, V)
+        ``values``), a ``FrameStructures`` (with
         ``dist`` and the frame's (P, V) ``values``), or None: the frame's
         (P, 3) ``positions``, ``values`` and (P,) ``mask`` are distributed
         onto ``state.tables``.  Returns (logits or None, new state, aux)."""
@@ -232,8 +234,13 @@ class LNNSeq(nn.Module):
         if pre_reduced is None:
             values_rows = (values.repeat_interleave(4, dim=0)
                            * dist.row_valid[:, None])
+            # the sequence lattice counts each vertex's rows in its build
+            offline = seqlat is not None and not isinstance(
+                seqlat, lo.FrameStructures)
             pre_reduced = self.point_net_seq.reduce_frame(
-                dist, values_rows, nbrs[0].idx.shape[0])
+                dist, values_rows, nbrs[0].idx.shape[0], counts[0],
+                seqlat.nr_points[t] if offline else None,
+                drop_past_cap=offline)
         lv, h[0] = self.point_net_seq.fuse_and_conv(
             pre_reduced, nbrs[0], counts[0], h[0], pc[0], is_first)
         pc[0] = counts[0]

@@ -12,10 +12,12 @@ The JAX package's three ``custom_vjp``s are ``torch.autograd.Function``s
 here, with the same backward: the neighborhood gather's transpose is another
 gather (:class:`_Gather8Sym`), the coarsen splat's is the barycentric slice
 (:class:`_SplatSorted`), and the finefy slice's is the splat on the link's
-dst-sorted view through kernel K2 (:class:`_SliceSorted`).  Barycentric
-weights get no gradient (nothing differentiates point positions).  The
-streaming path's links have no dst-sorted view: their splat is a float32
-:func:`segment_sum` and their slice a plain gather.
+dst-sorted view through kernel K2 (:class:`_SliceSorted`).  The deform
+slice's row gather (:class:`_GatherRows`) adds its backward with
+:func:`segment_sum`, which leaves out the rows that read the invalid row
+0.  Barycentric weights get no gradient (nothing differentiates point
+positions).  The streaming path's links have no dst-sorted view: their
+splat is a float32 :func:`segment_sum` and their slice a plain gather.
 
 The streaming structures keep every count on the device; nothing in a frame
 reads a tensor on the host.  ``.at[...].set(..., mode="drop")`` of the JAX
@@ -331,6 +333,34 @@ def gather8_sym(values: torch.Tensor, idx8: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather8_sym: idx8 must be ({values.shape[0]}, 8), "
                          f"got {tuple(idx8.shape)}")
     return _Gather8Sym.apply(values, idx8)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``values[idx]`` whose backward is :func:`segment_sum` of the
+    cotangent rows by ``idx``: each row's contributions added in row order,
+    and the rows that read row 0 (every masked point reads the invalid
+    bucket) left out instead of forming one serial chain.  Row 0's gradient
+    is therefore 0, which is exact only where nothing upstream uses it: the
+    ``mask_rows`` invariant (``values`` comes out of ``mask_rows``, whose
+    backward zeroes row 0)."""
+
+    @staticmethod
+    def forward(ctx, values, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = values.shape[0]
+        return values[idx]
+
+    @staticmethod
+    def backward(ctx, dg):
+        (idx,) = ctx.saved_tensors
+        flat = dg.reshape((idx.numel(),) + tuple(dg.shape[idx.dim():]))
+        return segment_sum(flat, idx.reshape(-1), ctx.rows), None
+
+
+def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``values[idx]`` for rows of a ``mask_rows``-clean array, with the
+    backward of :class:`_GatherRows` (row 0's gradient is dropped)."""
+    return _GatherRows.apply(values, idx)
 
 
 def gather_rowified(values: torch.Tensor, nbr: NeighborTable) -> torch.Tensor:

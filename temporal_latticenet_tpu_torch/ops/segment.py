@@ -1,17 +1,20 @@
-"""Packed value + barycentric-weight segment max (port of the JAX
-package's ``ops/segment.sorted_packed_max``, with its straight-through
-backward, and the forward of ``segment_max_with_bary_packed``).
+"""Segment maxima of the pointnet (port of the JAX package's
+``ops/segment.py``): the packed value + barycentric-weight max
+``sorted_packed_max`` and ``segment_max_with_bary_packed``, each with its
+straight-through backward, and the float32 ``segment_max_with_argmax``.
 
 The bf16 value bits (monotone-mapped) go into the high 16 bits of a uint32
 and the quantised barycentric weight into the low 16, so one segmented
 running max carries both; each bucket's result is read at its tail row.
 The uint32 bits are held in int32 tensors.
 
-The streaming path's per-frame max (:func:`segment_max_with_bary_packed`)
-is one ``scatter_reduce("amax")`` of the packed values, as uint32 in int64,
-from a zero fill.  The offline path's max over contiguous sorted sub-runs
-(:func:`sorted_packed_max`) takes one of two routes, bit-equal at the tails
-(max does not depend on order):
+The per-frame max (:func:`segment_max_with_bary_packed`: streaming, and the
+non-batched offline route in bf16) is one ``scatter_reduce("amax")`` of the
+packed values, as uint32 in int64, from a zero fill; in float32 the
+per-frame route takes :func:`segment_max_with_argmax` instead.  The offline
+path's max over contiguous sorted sub-runs (:func:`sorted_packed_max`)
+takes one of two routes, bit-equal at the tails (max does not depend on
+order):
 
 * the default: one full-run segmented max (kernel K4) read at the tails;
 * with ``TLN_MAXSCAN_PACKED=1`` in the environment (read at call time, the
@@ -172,13 +175,47 @@ def sorted_packed_max(data, bary, live, head_count, bucket, tailpos,
                                   tailpos, bucket_live)
 
 
+class _SegmentMaxPacked(torch.autograd.Function):
+    """Forward: the packed scatter max of :func:`segment_max_with_bary_packed`.
+    Backward: the straight-through max gradient of the JAX package's
+    ``segment._packed_max_bwd``: each segment/channel cotangent flows to the
+    rows whose packed value equals the segment's best, by one gather by
+    segment id (no scatter)."""
+
+    @staticmethod
+    def forward(ctx, data, bary, segment_ids, num_segments, valid):
+        packed = _pack_value_bary(data, bary, valid)
+        best = torch.zeros((num_segments, packed.shape[1]), dtype=torch.int64,
+                           device=packed.device).scatter_reduce_(
+            0, segment_ids[:, None].expand_as(packed),
+            packed.to(torch.int64) & 0xFFFFFFFF, "amax")
+        # the int32 words are kept and widened in the backward, so the
+        # forward launches nothing for it
+        ctx.save_for_backward(packed, best, segment_ids)
+        ctx.data_dtype = data.dtype
+        return _decode_packed(best)
+
+    @staticmethod
+    def backward(ctx, dmx, dbary_sel):
+        packed, best, ids = ctx.saved_tensors
+        sel_best = best[ids]
+        winner = ((packed.to(torch.int64) & 0xFFFFFFFF) == sel_best) \
+            & (sel_best != 0)
+        zero = torch.zeros((), dtype=dmx.dtype, device=dmx.device)
+        ddata = torch.where(winner, dmx[ids], zero).to(ctx.data_dtype)
+        dbary = None
+        if ctx.needs_input_grad[1]:
+            dbary = torch.where(winner, dbary_sel[ids], zero).sum(-1)
+        return ddata, dbary, None, None, None
+
+
 def segment_max_with_bary_packed(data, bary, segment_ids, num_segments: int,
                                  valid):
     """Per-segment, per-channel max of bf16 ``data`` and the barycentric
     weight of the winning row, in one scatter: the packed values (uint32,
     held in int64) reduced by ``scatter_reduce("amax")`` into a zero fill;
-    0 is the empty identity, so empty segments give (0, 0).  Forward only
-    (the streaming path runs without gradients).
+    0 is the empty identity, so empty segments give (0, 0).  The gradient
+    flows straight through to the winning rows (:class:`_SegmentMaxPacked`).
 
     Args:
       data: (R, C) rows, cast to bf16; bary: (R,) float32 in [0, 1];
@@ -186,11 +223,40 @@ def segment_max_with_bary_packed(data, bary, segment_ids, num_segments: int,
         invalid rows never win.
     Returns (mx (S, C) float32, bary_sel (S, C) float32).
     """
-    if torch.is_grad_enabled() and (data.requires_grad or bary.requires_grad):
-        raise NotImplementedError(
-            "the per-frame packed max has no backward in the port yet")
-    packed = _pack_value_bary(data, bary, valid).to(torch.int64) & 0xFFFFFFFF
-    best = torch.zeros((num_segments, packed.shape[1]), dtype=torch.int64,
-                       device=packed.device).scatter_reduce_(
-        0, segment_ids[:, None].expand_as(packed), packed, "amax")
-    return _decode_packed(best)
+    return _SegmentMaxPacked.apply(data, bary, segment_ids, num_segments,
+                                   valid)
+
+
+def segment_max_with_argmax(data, segment_ids, num_segments: int,
+                            valid=None):
+    """Per-segment, per-channel max and the winning row (the JAX package's
+    ``segment_max_with_argmax``, torch_scatter's ``scatter_max``
+    semantics): empty segments give 0 and -1, invalid rows never win, and
+    among tied rows the largest row index wins.  Both reductions are one
+    ``scatter_reduce("amax")`` each (max is exact in any order); the
+    gradient of the max is shared among tied rows, as the JAX package's
+    scatter max shares it.
+
+    Args:
+      data: (R, C) rows; segment_ids: (R,) int64 in [0, num_segments);
+      valid: optional (R,) bool.
+    Returns (max (S, C) in data's dtype, argmax (S, C) int64).
+    """
+    r, c = data.shape
+    neg = torch.full((), float("-inf"), dtype=data.dtype, device=data.device)
+    masked = data if valid is None else torch.where(valid[:, None], data, neg)
+    idx = segment_ids[:, None].expand(r, c)
+    mx = torch.full((num_segments, c), float("-inf"), dtype=data.dtype,
+                    device=data.device).scatter_reduce(0, idx, masked, "amax")
+    has = torch.isfinite(mx)
+    mxz = torch.where(has, mx, torch.zeros((), dtype=data.dtype,
+                                           device=data.device))
+    winner = masked == mx.detach()[segment_ids]
+    if valid is not None:
+        winner &= valid[:, None]
+    rows = torch.arange(r, device=data.device)[:, None]
+    none = torch.full((), -1, dtype=torch.int64, device=data.device)
+    arg = torch.full((num_segments, c), -1, dtype=torch.int64,
+                     device=data.device).scatter_reduce(
+        0, idx, torch.where(winner, rows, none), "amax")
+    return mxz, torch.where(has, arg, none)

@@ -23,7 +23,8 @@ import torch
 
 from . import permutohedral as pm
 from .fused_simplex import fused_simplex_pack
-from .lattice_ops import LevelLink, NeighborTable, augment_link_sorted
+from .lattice_ops import (DistributeOut, LevelLink, NeighborTable,
+                          augment_link_sorted)
 from .seg_scan import seg_sum_tails, sorted_segment_scan
 from .vertex_table import (PACKED_SENTINEL, SENTINEL, shifted_ne,
                            lookup_select, pack_keys, unpack_keys)
@@ -71,6 +72,14 @@ class SeqLattice:
     point_bary: torch.Tensor       # (T, P, 4) float32
     nr_points: torch.Tensor | None = None   # (T, C0) float32 rows per vertex
     sorted_pn: SortedPN | None = None
+
+    def distribute_out(self) -> DistributeOut:
+        """Every frame's splat rows and points as one (T, ...)
+        ``DistributeOut``; ``.frame(t)`` is frame t's."""
+        return DistributeOut(
+            row_vertex=self.row_vertex, row_bary=self.row_bary,
+            row_rel_pos=self.row_rel_pos, row_valid=self.row_valid,
+            point_vertex=self.point_vertex, point_bary=self.point_bary)
 
     def frame_nbr(self, level: int, t: int) -> NeighborTable:
         """Neighbor table as visible at frame t (unborn neighbors absent)."""
@@ -474,11 +483,8 @@ def trim_sequence_lattice(lat: SeqLattice, trim_caps) -> SeqLattice:
             torch.where(ok, link.corner_bary[:cf],
                         torch.zeros_like(link.corner_bary[:cf])),
             cc))
-    return SeqLattice(
-        levels=tuple(levels), links=tuple(links), row_vertex=lat.row_vertex,
-        row_bary=lat.row_bary, row_valid=lat.row_valid,
-        row_rel_pos=lat.row_rel_pos, point_vertex=lat.point_vertex,
-        point_bary=lat.point_bary,
+    return dataclasses.replace(
+        lat, levels=tuple(levels), links=tuple(links),
         nr_points=(None if lat.nr_points is None
                    else lat.nr_points[:, :trim_caps[0]]),
         sorted_pn=None)

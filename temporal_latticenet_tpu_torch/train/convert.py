@@ -33,12 +33,13 @@ def params_from_jax(params_np: Mapping, cfg) -> dict:
             put(tpre + ".bias", sub["bias"])
 
     def fusion(tpre, sub, kind):
-        if kind == "gru":
+        if kind in ("gru", "lstm"):
+            cell = "GRU" if kind == "gru" else "lstm"
             linear(tpre + ".hidden_linear", sub["hidden_linear"])
-            put(f"{tpre}.GRU.weight_ih", sub["gru"]["w_ih"], transpose=True)
-            put(f"{tpre}.GRU.weight_hh", sub["gru"]["w_hh"], transpose=True)
-            put(f"{tpre}.GRU.bias_ih", sub["gru"]["b_ih"])
-            put(f"{tpre}.GRU.bias_hh", sub["gru"]["b_hh"])
+            put(f"{tpre}.{cell}.weight_ih", sub[kind]["w_ih"], transpose=True)
+            put(f"{tpre}.{cell}.weight_hh", sub[kind]["w_hh"], transpose=True)
+            put(f"{tpre}.{cell}.bias_ih", sub[kind]["b_ih"])
+            put(f"{tpre}.{cell}.bias_hh", sub[kind]["b_hh"])
         elif kind == "aflow":
             put(tpre + ".AFLOW.alpha", sub["alpha"])
             put(tpre + ".AFLOW.beta", sub["beta"])
@@ -46,9 +47,16 @@ def params_from_jax(params_np: Mapping, cfg) -> dict:
             if "bias" in sub:
                 put(tpre + ".AFLOW.bias", sub["bias"])
             linear(tpre + ".linear", sub["linear"])
-        else:
-            raise NotImplementedError(
-                f"fusion {kind!r} is not ported to PyTorch yet")
+        elif kind == "cga":
+            linear(tpre + ".hidden_linear", sub["hidden_linear"])
+            put(tpre + ".conv.weight", sub["conv"]["kernel"], transpose=True)
+            put(tpre + ".groupnorm.gn.weight", sub["groupnorm"]["scale"])
+            put(tpre + ".groupnorm.gn.bias", sub["groupnorm"]["bias"])
+        elif kind == "linear":
+            linear(tpre + ".hidden_linear", sub["hidden_linear"])
+            linear(tpre + ".linear", sub["linear"])
+        elif kind != "maxpool":
+            raise ValueError(f"unknown fusion {kind!r}")
 
     def gn(tpre, sub):
         put(tpre + ".gn.gn.weight", sub["gn"]["scale"])

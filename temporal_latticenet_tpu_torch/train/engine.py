@@ -4,14 +4,17 @@ of the JAX package's ``train/engine.py``: ``make_sequence_forward``,
 ``create_train_state`` and ``make_train_step``).
 
 The whole sequence's lattice is built in one birth-tagged pass
-(``ops/seq_lattice``), the pointnet MLP + max runs once for all frames over
-the union-sorted rows, frames 0..T-2 run the trimmed early-return network on
-row prefixes of the lattice (a Python loop in place of ``lax.scan``), and
-the final frame runs the full model on its own trimmed view.  The training
+(``ops/seq_lattice``); with ``RuntimeConfig.batched_pointnet`` in bf16 the
+pointnet MLP + max runs once for all frames over the union-sorted rows,
+otherwise (the non-batched route, and every float32 configuration) each
+frame runs it over its own rows of the lattice.  Frames 0..T-2 run the
+trimmed early-return network on row prefixes of the lattice (a Python loop
+in place of ``lax.scan``), and the final frame runs the full model on its
+own trimmed view.  The training
 step differentiates that forward end to end (backpropagation through time
 over the carried fusion states) under the loss of ``models/losses.py`` and
-takes one AdamW(amsgrad) step.  Batches of more than one sequence and
-dropout are not ported.
+takes one AdamW(amsgrad) step.  Batches of more than one sequence,
+dropout and the pointnet's experiment ablations are not ported.
 
 Streaming inference serves one scan at a time, as a deployed system does:
 the vertex tables and fusion states carry over between frames, and each
@@ -47,6 +50,19 @@ def _resize_rows(a: torch.Tensor, c: int) -> torch.Tensor:
     return torch.nn.functional.pad(a, (0, 0, 0, c - a.shape[0]))
 
 
+def _check_ported(cfg: ModelConfig):
+    """Every model configuration runs, except the experiment ablations."""
+    if cfg.experiment != "none":
+        raise NotImplementedError(
+            f"experiment {cfg.experiment!r} is not ported to PyTorch yet")
+
+
+def batched_pointnet(cfg: ModelConfig, rt: RuntimeConfig) -> bool:
+    """Whether the offline forward runs the pointnet for all frames at once
+    over the union-sorted rows (bf16 only, as in the JAX package)."""
+    return rt.batched_pointnet and cfg.compute_dtype == "bfloat16"
+
+
 def sequence_lattice(cfg: ModelConfig, rt: RuntimeConfig,
                      positions: torch.Tensor, values: torch.Tensor,
                      mask: torch.Tensor):
@@ -54,7 +70,8 @@ def sequence_lattice(cfg: ModelConfig, rt: RuntimeConfig,
 
     Returns ``(seqlat, trim_caps, final_caps)``: the row prefixes that the
     non-final frames and the final frame run on, each None when that view
-    is not trimmed."""
+    is not trimmed.  The batched pointnet's values ride the union's sorts;
+    the per-frame route reads every row's relative position instead."""
     L = cfg.nr_downsamples
     caps = rt.capacities(L)
     t = positions.shape[0]
@@ -71,10 +88,11 @@ def sequence_lattice(cfg: ModelConfig, rt: RuntimeConfig,
         nbr_caps = tuple(max(tc, fc) for tc, fc in zip(trim_caps, final_caps))
     elif final_caps is not None and t == 1:
         nbr_caps = final_caps
+    batched = batched_pointnet(cfg, rt)
     seqlat = sl.build_sequence_lattice(
         positions, mask, rt.sigma, caps, L, nbr_caps=nbr_caps,
-        pn_values=values if values.shape[-1] <= 3 else None,
-        want_row_rel=False)
+        pn_values=values if batched and values.shape[-1] <= 3 else None,
+        want_row_rel=not batched)
     return seqlat, trim_caps, final_caps
 
 
@@ -109,11 +127,8 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     """
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
-    if not (rt.batched_pointnet and cfg.experiment == "none"
-            and cfg.compute_dtype == "bfloat16"):
-        raise NotImplementedError(
-            "only the batched pointnet path (bf16, experiment 'none') is "
-            "ported to PyTorch yet")
+    _check_ported(cfg)
+    batched = batched_pointnet(cfg, rt)
     L = cfg.nr_downsamples
     dev = model.device
     frame = _remat_frame(model, remat)
@@ -144,18 +159,19 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
         trim_overflow = (torch.stack(over).any() if over
                          else torch.zeros((), dtype=torch.bool, device=dev))
 
-        full_dist = lo.DistributeOut(
-            row_vertex=seqlat.row_vertex, row_bary=seqlat.row_bary,
-            row_rel_pos=seqlat.row_rel_pos, row_valid=seqlat.row_valid,
-            point_vertex=seqlat.point_vertex, point_bary=seqlat.point_bary)
+        full_dist = seqlat.distribute_out()
         with lo.remat_conv_rows(remat == "selective"):
-            reduced_all = model.reduce_pointnet(seqlat, values)
+            # per frame: the batched pointnet's reduced slice, or None (the
+            # frame runs the pointnet over its own rows)
+            reduced_all = (model.reduce_pointnet(seqlat, values) if batched
+                           else [None] * t)
 
             if t > 1:
                 if trim_caps is not None:
                     with torch.no_grad():
                         scan_lat = sl.trim_sequence_lattice(seqlat, trim_caps)
-                    red_scan = reduced_all[:-1, : trim_caps[0]]
+                    red_scan = (reduced_all[:-1, : trim_caps[0]] if batched
+                                else reduced_all[:-1])
                     state.h = tuple(
                         a[:c] if a.shape[0] > 1 else a
                         for a, c in zip(state.h, site_caps(trim_caps)))
@@ -163,7 +179,8 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
                     scan_lat, red_scan = seqlat, reduced_all[:-1]
                 for f in range(t - 1):
                     _, state, _ = frame(state, scan_lat, full_dist.frame(f),
-                                        red_scan[f], final=False)
+                                        red_scan[f], final=False,
+                                        values=values[f])
             if trim_caps is not None or final_caps is not None:
                 target = site_caps(final_caps if final_caps is not None
                                    else rt.capacities(L))
@@ -172,12 +189,13 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
             if final_caps is not None:
                 with torch.no_grad():
                     final_lat = sl.trim_sequence_lattice(seqlat, final_caps)
-                red_final = reduced_all[-1, : final_caps[0]]
+                red_final = (reduced_all[-1, : final_caps[0]] if batched
+                             else None)
             else:
                 final_lat, red_final = seqlat, reduced_all[-1]
             (logp, sv), state, aux = frame(state, final_lat,
                                            full_dist.frame(t - 1), red_final,
-                                           final=True)
+                                           final=True, values=values[-1])
         aux["trim_overflow"] = trim_overflow
         aux["vertex_overflow"] = aux["vertex_overflow"] | trim_overflow
         return logp, sv, aux
@@ -218,13 +236,6 @@ def make_sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
 # streaming inference
 # ---------------------------------------------------------------------------
 
-def _check_streaming(cfg: ModelConfig):
-    if cfg.experiment != "none" or cfg.compute_dtype != "bfloat16":
-        raise NotImplementedError(
-            "streaming inference is ported for experiment 'none' in bf16 "
-            "only (the per-frame pointnet)")
-
-
 def _frame_inputs(dev, positions, values, mask):
     return tuple(torch.as_tensor(a, device=dev)
                  for a in (positions, values, mask))
@@ -243,7 +254,7 @@ def make_streaming_inference(model: LNNSeq, cfg: ModelConfig,
     Frames are (P, 3), (P, V), (P,), numpy arrays or tensors; they move to
     the model's device.
     """
-    _check_streaming(cfg)
+    _check_ported(cfg)
     dev = model.device
 
     def new_state_fn():
@@ -284,7 +295,7 @@ def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
       step_*(pos, vals, mask, state, fs)    -> (state, fs)
       final_inc(pos, vals, mask, state, fs) -> (logp, logits, state, fs, aux)
     """
-    _check_streaming(cfg)
+    _check_ported(cfg)
     dev = model.device
     L = cfg.nr_downsamples
     caps = rt.capacities(L)

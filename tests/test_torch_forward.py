@@ -31,7 +31,8 @@ from temporal_latticenet_tpu.models import LNNSeq as JLNNSeq
 from temporal_latticenet_tpu.models import init_state as j_init_state
 from temporal_latticenet_tpu.train import engine as jengine
 from temporal_latticenet_tpu.train.torch_convert import export_state_dict
-from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+from temporal_latticenet_tpu_torch.config import (VALID_EXPERIMENTS,
+                                                  ModelConfig, RuntimeConfig)
 from temporal_latticenet_tpu_torch.models.fusion import make_fusion
 from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
 from temporal_latticenet_tpu_torch.train.convert import params_from_jax
@@ -137,17 +138,23 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """What the port still leaves out raises: streams sharded over a device
+    mesh, and the pointnet's experiment ablations on every entry point.
+    The fusion kinds, the non-batched route and float32 streaming run."""
     cfg, rt = ModelConfig(), RuntimeConfig(**RT)
     model = LNNSeq(cfg, rt, device="cpu")
     with pytest.raises(NotImplementedError):
-        make_sequence_forward(
-            model, cfg, dataclasses.replace(rt, batched_pointnet=False))
-    # streams sharded over a device mesh, and the float32 per-frame pointnet
-    with pytest.raises(NotImplementedError):
         make_streaming_inference_batched(model, cfg, rt, mesh=object())
+    for exp in VALID_EXPERIMENTS:
+        if exp == "none":
+            continue
+        xcfg = dataclasses.replace(cfg, experiment=exp)
+        for precompute in (True, False):
+            with pytest.raises(NotImplementedError):
+                make_sequence_forward(model, xcfg, rt, precompute=precompute)
+    make_sequence_forward(model, cfg,
+                          dataclasses.replace(rt, batched_pointnet=False))
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
-    with pytest.raises(NotImplementedError):
-        make_sequence_forward(model, f32, rt, precompute=False)
+    make_sequence_forward(model, f32, rt, precompute=False)
     for kind in ("lstm", "cga", "maxpool", "linear"):
-        with pytest.raises(NotImplementedError):
-            make_fusion(kind, 64, cfg)
+        assert make_fusion(kind, 64, cfg) is not None

@@ -283,9 +283,15 @@ def test_segment_max_with_bary_packed_bit_equal():
                                                 segs, _t(valid))
     np.testing.assert_array_equal(tmx.numpy(), np.asarray(jmx))
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
-    with pytest.raises(NotImplementedError):
-        tseg.segment_max_with_bary_packed(_t(data).requires_grad_(),
-                                          _t(bary), _t(ids), segs, _t(valid))
+    # the straight-through backward: the cotangent goes to the winning rows
+    x = _t(data).requires_grad_()
+    tmx, _ = tseg.segment_max_with_bary_packed(x, _t(bary), _t(ids), segs,
+                                               _t(valid))
+    tmx.sum().backward()
+    np.testing.assert_array_equal(x.grad.numpy(), np.asarray(jax.grad(
+        lambda d: jseg.segment_max_with_bary_packed(
+            d, jnp.asarray(bary), jnp.asarray(ids), segs,
+            jnp.asarray(valid))[0].sum())(jnp.asarray(data))))
 
 
 # ---------------------------------------------------------------------------
@@ -364,8 +370,10 @@ def test_per_frame_pointnet_matches_jax(tiny):
                                atol=BF16)
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=BF16,
                                atol=BF16)
-    with pytest.raises(NotImplementedError):
-        PointNetSeq(ModelConfig(**TINY_CFG, compute_dtype="float32")
+    # the bf16 packed max has no argmax for the bary quirk (the JAX package
+    # asserts the same)
+    with pytest.raises(ValueError):
+        PointNetSeq(ModelConfig(**TINY_CFG, reference_bary_quirk=True)
                     ).reduce_frame(tdist, _t(vrows), cap)
 
 
