@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero without the final line:
    is the CUDA-event time of back-to-back calls, host launch overhead
    included; ``device_ops_per_call`` counts the kernels, copies and memsets
    of one call.  K2's float32 sums run at the coarsen splats' shapes and at
-   the finefy slices' backward shapes, then at the look-back's edge cases
+   the finefy slices' backward shapes, on the trimmed final links of
+   phase 4's geometry and on the untrimmed links of the shipped train cfg
+   (phase 15's), then at the look-back's edge cases
    (one run over every row, fewer rows than a tile, a ragged last tile);
    K3 also takes shuffled, repeated, mid-run and out-of-range tails; every
    float32 sum must equal a second call bit for bit; K4 (on the same
@@ -91,11 +93,32 @@ Phases, in order; any failure exits non-zero without the final line:
     card vs CPU at the reduced geometry: the last frame's pointnet maxima
     within 1e-4 (the entries whose winning row differs counted), the
     log-probabilities within 1e-2;
-15. phase 8 also reports the deform slice's gather backward
-    (``indexing_backward_kernel``, once a 21.48 ms launch): no single
-    launch of it may take over 1 ms;
+15. the training and evaluation loop from ``seq_config/lnn_train_semantic_kitti.cfg``
+    and ``lnn_eval_semantic_kitti.cfg`` (copies with only the paths and
+    the read counts overridden: full width, bf16, 131,072 points, no
+    trims, augmentation on) on an on-disk SemanticKITTI tree of
+    LiDAR-like scans (sequences 00 and 08, ``LOOP_SCANS`` each, written
+    under ``build/``): ``run_training`` for one epoch's train phase and
+    its valid phase, then ``run_eval`` of the valid split from the saved
+    epoch checkpoint, writing devkit predictions.  It reports the
+    loader's milliseconds per window, the loop's seconds per step (median
+    and quartiles) beside the bare training step's on a window loaded in
+    advance, the valid and eval seconds per sequence, the host syncs of
+    one loop step, peak memory, and the K1-K4 launches and device time of
+    one loop step under ``torch.profiler``; it fails unless the losses are
+    finite, the reloaded checkpoint gives the trained model's
+    log-probabilities bit for bit, a resume from the epoch checkpoint
+    gives the next two steps' losses of continuing bit for bit (and a
+    resume with a fresh optimizer another second loss; one with AdamW's
+    ``max_exp_avg_sq`` dropped is recorded), every scan has its devkit
+    ``.label`` and the submission check passes, and a reference-schema
+    ``.pt`` of the weights loads strictly;
 16. one JSON line with the kernels, the device line, and the result line
     ``{"ok": true, "device": {...}}`` last.
+
+Phase 8 also reports the deform slice's gather backward
+(``indexing_backward_kernel``, once a 21.48 ms launch): no single launch of
+it may take over 1 ms.
 
 Exits non-zero when CUDA is unavailable.
 """
@@ -162,7 +185,7 @@ PROFILE_STREAM_SEQS = 2
 # may take longer (the deform slice's gather backward took 21.48 ms)
 DEFORM_GATHER_BWD = "indexing_backward_kernel"
 DEFORM_GATHER_BWD_MS = 1.0
-# phases 12-15: the other model configurations at the bench geometry
+# phases 12-14: the other model configurations at the bench geometry
 ALL_KINDS = ("lstm", "maxpool", "cga", "linear")
 CONFIG_ITERS = 10      # timed forwards per configuration
 CONFIG_PROFILE = 2     # forwards per configuration under torch.profiler
@@ -174,6 +197,30 @@ CONFIG_STEPS = 3       # timed training steps of the all-kinds model
 # (measured 0.00245)
 F32_MAX_ATOL = 1e-4
 F32_LOGP_ATOL = 1e-2
+# phase 15: the loop from the shipped cfgs on an on-disk tree
+ROOT = os.path.dirname(os.path.abspath(__file__))
+LOOP_DIR = os.path.join(ROOT, "build", "loop_smoke")
+LOOP_SCANS = 12        # scans of sequences 00 (train) and 08 (valid)
+LOOP_TIMED = range(1, 9)   # loop steps timed (after the first, warm one)
+LOOP_PROFILE_STEP = 9  # the loop step under torch.profiler
+LOOP_SYNC_STEP = 10    # the loop step whose host syncs are counted
+BARE_STEPS = 5         # timed bare training steps after a warm one
+# the shipped cfgs' data path, output paths and read count
+LOOP_EDITS = {
+    "train": (('"/workspace/Data/SemanticKitti/dataset"', '"{data}"'),
+              ('checkpoint_path: "./checkpoints/"',
+               'checkpoint_path: "{ckpt}"'),
+              ("nr_clouds_to_read: -1",
+               "nr_clouds_to_read: {n}\n    measure_sequence_lengths: true")),
+    "eval": (('"/workspace/Data/SemanticKitti/dataset"', '"{data}"'),
+             ('checkpoint_path: "./pretrained_models"',
+              'checkpoint_path: "{ckpt}"'),
+             ('load_checkpoint_model: ""', 'load_checkpoint_model: "{model}"'),
+             ("do_write_predictions: false", "do_write_predictions: true"),
+             ('"./predictions/gru_gru_aflow_gru"', '"{preds}"'),
+             ("nr_clouds_to_read: -1",
+              "nr_clouds_to_read: -1\n    measure_sequence_lengths: true")),
+}
 
 KERNELS = {
     "fused_simplex_pack": dict(
@@ -315,9 +362,22 @@ def sum_tolerance(plain, plain_abs, run_len) -> torch.Tensor:
 # phase 3: kernels against their plain versions at main-path shapes
 # ---------------------------------------------------------------------------
 
+def shipped_train_configs():
+    """The model and runtime configurations of the shipped train cfg, which
+    phase 15's loop runs (capacities 49152/24576/12288, no trims)."""
+    from temporal_latticenet_tpu_torch.config import (
+        cfgParser, model_config_from_cfg, nr_classes_from_cfg,
+        runtime_config_from_cfg)
+    parser = cfgParser(os.path.join(ROOT, "seq_config",
+                                    "lnn_train_semantic_kitti.cfg"))
+    return (model_config_from_cfg(parser, nr_classes_from_cfg(parser)),
+            runtime_config_from_cfg(parser))
+
+
 def kernel_inputs(dev, data):
     """Real main-path operands: the full-width lattice built on the card as
-    the forward builds it, and the final frame's trimmed links."""
+    the forward builds it, the final frame's trimmed links, and the links
+    of the same data under the shipped train cfg (untrimmed: the loop's)."""
     from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
     from temporal_latticenet_tpu_torch.ops import permutohedral as pm
     from temporal_latticenet_tpu_torch.ops import seq_lattice as sl
@@ -327,10 +387,14 @@ def kernel_inputs(dev, data):
     pos, val, mask = (torch.as_tensor(a, device=dev) for a in data)
     lat, _, final_caps = sequence_lattice(ModelConfig(), rt, pos, val, mask)
     final = sl.trim_sequence_lattice(lat, final_caps)
+    cfg_s, rt_s = shipped_train_configs()
+    loop_lat, trims, finals = sequence_lattice(cfg_s, rt_s, pos, val, mask)
+    if trims is not None or finals is not None:
+        raise AssertionError("the shipped train cfg now trims its lattice")
     t, p = mask.shape
     y = pm.scale_positions(pos.reshape(t * p, 3), rt.sigma).contiguous()
     return dict(y=y, mask=mask.reshape(-1).contiguous(), spn=lat.sorted_pn,
-                links=final.links, p=p)
+                links=final.links, loop_links=loop_lat.links, p=p)
 
 
 def check_kernels(dev, inp):
@@ -416,20 +480,26 @@ def check_kernels(dev, inp):
          q * 4 * 3, q, exact)
     # K2 sum float32 on the final frame's links: the coarsen splats (64
     # channels over link 0, 128 over link 1) and the finefy slices'
-    # backward (128-channel cotangents over link 1, then link 0)
+    # backward (128-channel cotangents over link 1, then link 0); on the
+    # flagship geometry's trimmed links, then on the shipped train cfg's
+    # untrimmed ones, which the loop's steps (phase 15) run
     link0, link1 = inp["links"]
-    for use, link, c in (("coarsen splat", link0, 64),
-                         ("coarsen splat / slice backward", link1, 128),
-                         ("slice backward", link0, 128)):
-        dst = link.sorted_dst
-        rows = torch.randn(dst.shape[0], c, generator=g, device=dev)
-        m = dst.shape[0]
+    for geometry, (l0, l1) in (("", inp["links"]),
+                               ("shipped cfg, no trims: ",
+                                inp["loop_links"])):
+        for use, link, c in (("coarsen splat", l0, 64),
+                             ("coarsen splat / slice backward", l1, 128),
+                             ("slice backward", l0, 128)):
+            dst = link.sorted_dst
+            rows = torch.randn(dst.shape[0], c, generator=g, device=dev)
+            m = dst.shape[0]
 
-        def k2():
-            return ss.sorted_segment_scan(dst, rows, "sum")
-        case("sorted_segment_scan", f"{use}: sum float32 Q={m} C={c}", k2,
-             lambda: ss.sorted_segment_scan_plain(dst, rows, "sum"), None,
-             m * 4 + 2 * m * c * 4, m * c, summed(dst, rows, k2))
+            def k2():
+                return ss.sorted_segment_scan(dst, rows, "sum")
+            case("sorted_segment_scan",
+                 f"{geometry}{use}: sum float32 Q={m} C={c}", k2,
+                 lambda: ss.sorted_segment_scan_plain(dst, rows, "sum"), None,
+                 m * 4 + 2 * m * c * 4, m * c, summed(dst, rows, k2))
     # K2 edge cases of the look-back: one run over every row (with ids, so
     # each tile waits on the one before it), the largest float32 input as
     # one run, fewer rows than one tile, a ragged last tile
@@ -1054,16 +1124,23 @@ def host_syncs(fn):
     """Calls inside ``fn`` that made the host wait for the device (the
     ``torch.cuda`` sync debug mode's warnings), counted by the innermost
     line of this repository on the stack that made them."""
-    root = os.path.dirname(os.path.abspath(__file__))
+    with counting_host_syncs() as where:
+        fn()
+    return where
+
+
+@contextlib.contextmanager
+def counting_host_syncs():
+    """The counts of :func:`host_syncs` for the calls inside the block."""
     where = {}
 
     def record(message, *args, **kwargs):
         if "synchroniz" not in str(message):
             return
         mine = [f for f in traceback.extract_stack()
-                if f.filename.startswith(root)
+                if f.filename.startswith(ROOT)
                 and not f.filename.endswith("chip_smoke.py")]
-        key = (f"{os.path.relpath(mine[-1].filename, root)}:"
+        key = (f"{os.path.relpath(mine[-1].filename, ROOT)}:"
                f"{mine[-1].lineno}" if mine else "outside the repository")
         where[key] = where.get(key, 0) + 1
 
@@ -1072,10 +1149,9 @@ def host_syncs(fn):
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            yield where
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return where
 
 
 def check_stream_output(logp, aux, rt_kw, mask_last):
@@ -1319,7 +1395,7 @@ def streaming_card_vs_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 12-15: the other model configurations
+# phases 12-14: the other model configurations
 # ---------------------------------------------------------------------------
 
 def model_config(**kw):
@@ -1514,6 +1590,316 @@ def per_frame_pointnet_card_vs_cpu(dev, cfg, rt_kw):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the training and evaluation loop from the shipped cfgs
+# ---------------------------------------------------------------------------
+
+def write_kitti_tree(root: str, scans: int) -> None:
+    """Sequences 00 and 08 of a SemanticKITTI tree: ``scans`` LiDAR-like
+    scans each (131,072 rays, about 120k returns) in their own sensor
+    frames, raw labels through the 26-class inverse map, identity calib
+    and poses of the sensor's drive."""
+    from temporal_latticenet_tpu_torch.data.kitti_meta import build_inverse_lut
+    from temporal_latticenet_tpu_torch.data.lidar_like import lidar_sequence
+
+    inv = build_inverse_lut(True)
+    eye = "1 0 0 0 0 1 0 0 0 0 1 0"
+    for seed, seq in enumerate(("00", "08")):
+        pos, val, lab, mask = lidar_sequence(np.random.default_rng(seed),
+                                             frames=scans, max_points=131072)
+        d = os.path.join(root, "sequences", seq)
+        os.makedirs(os.path.join(d, "velodyne"))
+        os.makedirs(os.path.join(d, "labels"))
+        with open(os.path.join(d, "calib.txt"), "w") as f:
+            f.write(f"P0: {eye}\nTr: {eye}\n")
+        with open(os.path.join(d, "poses.txt"), "w") as f:
+            for t in range(scans):
+                # lidar_sequence's sensor drive, in frame-0 coordinates
+                sx, sy = float(t), 0.02 * t
+                sensor = np.array([sx, sy, 0.0], np.float32)
+                f.write(f"1 0 0 {sx!r} 0 1 0 {sy!r} 0 0 1 0\n")
+                m = mask[t]
+                np.concatenate([pos[t][m] - sensor, val[t][m]], 1).astype(
+                    np.float32).tofile(os.path.join(d, "velodyne",
+                                                    f"{t:06d}.bin"))
+                inv[lab[t][m]].astype(np.uint32).tofile(
+                    os.path.join(d, "labels", f"{t:06d}.label"))
+
+
+def loop_cfg(kind: str, out: str, **fields) -> str:
+    """A copy of the shipped train or eval cfg with ``LOOP_EDITS``."""
+    src = os.path.join(ROOT, "seq_config",
+                       f"lnn_{kind}_semantic_kitti.cfg")
+    text = open(src).read()
+    for a, b in LOOP_EDITS[kind]:
+        if a not in text:
+            raise AssertionError(f"{src} no longer holds {a!r}")
+        text = text.replace(a, b.format(**fields))
+    path = os.path.join(out, f"{kind}.cfg")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+class LoopProbe:
+    """Stands in for the loop's ``StateCallback`` (a subclass of it): the
+    host clock, loss and launch counts at each sequence, the mean IoU at
+    each epoch end; a ``torch.profiler`` window around train step
+    ``LOOP_PROFILE_STEP`` and the host syncs of step ``LOOP_SYNC_STEP``.
+    Each callback runs after the step's ``float(loss)``, so the device
+    has finished the step; the time from one callback to the next is one
+    whole loop step (the loader's wait, the batch's copy, the step, the
+    host reads and the IoU bookkeeping)."""
+
+    def __init__(self, loop_mod):
+        from temporal_latticenet_tpu_torch.ops import _cuda
+        self.loop_mod, self.base = loop_mod, loop_mod.StateCallback
+        self.seqs, self.miou, self.events, self.syncs = [], {}, None, None
+        self.prof, self.t_prof = None, 0.0
+        probe, stack = self, contextlib.ExitStack()
+
+        class Probe(self.base):
+            def after_forward_pass(self, *, phase=None, **kw):
+                t = time.perf_counter()
+                i = len(probe.steps(phase.name))
+                train = phase.grad
+                # the windows close at this callback's entry and open at
+                # its exit: they hold the loop's work and none of the probe's
+                if train and i == LOOP_PROFILE_STEP:
+                    probe.prof.stop()
+                    wall = (t - probe.t_prof) * 1e6
+                    probe.events = ([e for e in probe.prof.events()
+                                     if e.device_type
+                                     == torch.autograd.DeviceType.CUDA], wall)
+                if train and i == LOOP_SYNC_STEP:
+                    stack.close()
+                probe.seqs.append((phase.name, t, float(kw["loss"]),
+                                   _cuda.launch_counts()))
+                super().after_forward_pass(phase=phase, **kw)
+                if train and i == LOOP_PROFILE_STEP - 1:
+                    probe.prof = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA])
+                    probe.prof.start()
+                    probe.t_prof = time.perf_counter()
+                if train and i == LOOP_SYNC_STEP - 1:
+                    probe.syncs = stack.enter_context(counting_host_syncs())
+
+            def epoch_ended(self, *, phase=None, **kw):
+                probe.miou[phase.name] = phase.scores.avg_class_iou()
+                super().epoch_ended(phase=phase, **kw)
+
+        self.cls, self.stack = Probe, stack
+
+    def __enter__(self):
+        self.loop_mod.StateCallback = self.cls
+        return self
+
+    def __exit__(self, *exc):
+        self.stack.close()
+        self.loop_mod.StateCallback = self.base
+
+    def steps(self, name):
+        return [x for x in self.seqs if x[0] == name]
+
+    def seconds(self, name, which=None):
+        """Seconds from each sequence's callback to the next one's."""
+        ts = [x[1] for x in self.steps(name)]
+        d = [b - a for a, b in zip(ts, ts[1:])]
+        return [d[i - 1] for i in which] if which is not None else d
+
+    def launches(self, name, i):
+        """Kernel launches in step ``i`` (from callback i-1 to i)."""
+        a, b = self.steps(name)[i - 1][3], self.steps(name)[i][3]
+        return {k: b[k] - a[k] for k in b}
+
+
+def loop_flagship(dev):
+    """Phase 15: the loop from the shipped cfgs at full width on an
+    on-disk tree (see the module docstring)."""
+    import shutil
+
+    from temporal_latticenet_tpu_torch.config import (
+        cfgParser, model_config_from_cfg, nr_classes_from_cfg,
+        runtime_config_from_cfg)
+    from temporal_latticenet_tpu_torch.evaluate_semantics import validate
+    from temporal_latticenet_tpu_torch.ops import _cuda
+    from temporal_latticenet_tpu_torch.train import checkpoint as ckpt
+    from temporal_latticenet_tpu_torch.train import engine
+    from temporal_latticenet_tpu_torch.train import loop
+
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    data, ckpts = os.path.join(LOOP_DIR, "data"), os.path.join(LOOP_DIR,
+                                                               "ckpts")
+    os.makedirs(ckpts)
+    t0 = time.perf_counter()
+    write_kitti_tree(data, LOOP_SCANS)
+    tree_s = time.perf_counter() - t0
+    train_cfg = loop_cfg("train", LOOP_DIR, data=data, ckpt=ckpts + "/",
+                         n=LOOP_SCANS)
+    parser = cfgParser(train_cfg)
+    cfg = model_config_from_cfg(parser, nr_classes_from_cfg(parser))
+    rt = runtime_config_from_cfg(parser)
+    try:
+        # the loader alone: the train split's windows (augmented)
+        ds = loop.make_datasets(parser, cfg, rt)["train"]
+        load_s = []
+        for i in range(LOOP_SCANS):
+            t0 = time.perf_counter()
+            ds[i]
+            load_s.append(time.perf_counter() - t0)
+        from temporal_latticenet_tpu_torch.data import native_loader
+        native = native_loader.get_lib() is not None
+
+        # run_training: one epoch's train phase and its valid phase
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        with LoopProbe(loop) as probe:
+            t0 = time.perf_counter()
+            model, state = loop.run_training(train_cfg,
+                                             max_steps=2 * LOOP_SCANS)
+            train_wall = time.perf_counter() - t0
+        # set-up (model, datasets, the first window) and the first step
+        first_step_s = probe.steps("train")[0][1] - t0
+        launches_run = _cuda.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [x[2] for x in probe.seqs]
+        if len(probe.steps("train")) != LOOP_SCANS or \
+                len(probe.steps("valid")) != LOOP_SCANS:
+            raise AssertionError(f"the loop ran {len(probe.steps('train'))} "
+                                 f"train and {len(probe.steps('valid'))} "
+                                 f"valid sequences")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite losses {losses}")
+        step_launches = probe.launches("train", LOOP_TIMED[0])
+        missing = [k for k in FORWARD_KERNELS
+                   if launches_run[k] == 0 or step_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched in the loop: "
+                                 f"{missing}")
+        step_s = probe.seconds("train", LOOP_TIMED)
+        events, wall_us = probe.events
+        prof = device_summary(events, wall_us, 1, "step")
+        syncs = probe.syncs
+
+        # the checkpoint round trip: the epoch file reloaded into a fresh
+        # model gives the trained model's log-probabilities on one window
+        name = [f for f in os.listdir(ckpts) if f.endswith("_epoch0.ckpt")]
+        if len(name) != 1:
+            raise AssertionError(f"epoch checkpoints: {os.listdir(ckpts)}")
+        path = os.path.join(ckpts, name[0])
+        valid_ds = loop.make_datasets(parser, cfg, rt, ("valid",))["valid"]
+        window = engine.SeqBatch.stack([valid_ds[LOOP_SCANS - 1]], dev)
+        _, eval_step = engine.make_train_step(model, cfg, rt)
+        logp = eval_step(window)[0]
+        tv = parser.get_train_vars()
+        model2, state2 = engine.create_train_state(
+            cfg, rt, tv["lr"], tv["weight_decay"], seed=1, device=dev)
+        if ckpt.load(path, model2, state2.optimizer) != state.step:
+            raise AssertionError("the checkpoint's step differs")
+        _, eval_step2 = engine.make_train_step(model2, cfg, rt)
+        logp2 = eval_step2(window)[0]
+        if not torch.equal(logp, logp2):
+            raise AssertionError(
+                f"reloaded log-probabilities differ: "
+                f"{float((logp - logp2).abs().max())}")
+
+        # resume: two steps continuing the trained model and optimizer,
+        # two from the epoch checkpoint, with equal bits (the step sums in
+        # row order, without atomics)
+        batches = [engine.SeqBatch.stack([ds[i]], dev) for i in (0, 1)]
+        step_c, _ = engine.make_train_step(model, cfg, rt)
+        step_r, _ = engine.make_train_step(model2, cfg, rt)
+        cont = [float(step_c(state, b, 0.5)[2]["loss"]) for b in batches]
+        res = [float(step_r(state2, b, 0.5)[2]["loss"]) for b in batches]
+        if res != cont:
+            raise AssertionError(f"resumed losses {res} vs continuing {cont}")
+        # the faults that check is for: the checkpoint's weights with a
+        # fresh optimizer must give another second loss; with AdamW's
+        # max_exp_avg_sq dropped (it differs from exp_avg_sq only where
+        # that fell) the second loss is recorded
+        faults = {}
+        for fault in ("fresh optimizer", "max_exp_avg_sq dropped"):
+            model2, state2 = engine.create_train_state(
+                cfg, rt, tv["lr"], tv["weight_decay"], seed=1, device=dev)
+            ckpt.load(path, model2, None if fault == "fresh optimizer"
+                      else state2.optimizer)
+            for st in state2.optimizer.state.values():
+                if "max_exp_avg_sq" in st:
+                    st["max_exp_avg_sq"].zero_()
+            step_r, _ = engine.make_train_step(model2, cfg, rt)
+            faults[fault] = [float(step_r(state2, b, 0.5)[2]["loss"])
+                             for b in batches]
+            if fault == "fresh optimizer" and faults[fault][1] == cont[1]:
+                raise AssertionError(f"a resume with {fault} gives the "
+                                     f"continuing second loss {cont[1]}")
+
+        # the bare step on a window loaded in advance
+        bare = []
+        for i in range(BARE_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _, m = step_c(state, batches[0], 0.5)
+            float(m["loss"])
+            bare.append(time.perf_counter() - t0)
+        bare = bare[1:]
+
+        # a reference-schema .pt of the weights (``gn`` for ``gn.gn``)
+        # loads strictly
+        pt = os.path.join(LOOP_DIR, "weights.pt")
+        torch.save({k.replace(".gn.gn.", ".gn."): v.cpu()
+                    for k, v in model.state_dict().items()}, pt)
+        model3 = engine.create_train_state(cfg, rt, 1e-3, 0.0, seed=2,
+                                           device=dev)[0]
+        ckpt.load(pt, model3, cfg=cfg)
+        differ = [k for k, v in model.state_dict().items()
+                  if not torch.equal(v, model3.state_dict()[k])]
+        if differ:
+            raise AssertionError(f".pt weights differ: {differ}")
+        del model2, model3, state2, step_r, eval_step2
+        torch.cuda.empty_cache()
+
+        # run_eval of the valid split from the epoch checkpoint, writing
+        # devkit predictions
+        preds = os.path.join(LOOP_DIR, "predictions")
+        eval_cfg = loop_cfg("eval", LOOP_DIR, data=data, ckpt=ckpts,
+                            model=name[0], preds=preds)
+        with LoopProbe(loop) as eprobe:
+            t0 = time.perf_counter()
+            miou, phase = loop.run_eval(eval_cfg, split="valid")
+            eval_wall = time.perf_counter() - t0
+        report = validate(data, preds, split="valid")
+        written = sorted(os.listdir(os.path.join(preds, "sequences", "08",
+                                                 "predictions")))
+        if not report["ok"] or len(written) != LOOP_SCANS:
+            raise AssertionError(f"devkit predictions: {len(written)} "
+                                 f"files, report {report}")
+        if not math.isfinite(miou) or phase.iter_nr != LOOP_SCANS:
+            raise AssertionError(f"eval: mIoU {miou}, {phase.iter_nr} seqs")
+    finally:
+        shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    return dict(
+        scans_per_sequence=LOOP_SCANS, tree_seconds=tree_s,
+        native_loader=native, loader_ms_per_window=statistics.median(
+            load_s) * 1e3, loader_ms_all=[x * 1e3 for x in load_s],
+        train_wall_s=train_wall, first_step_s=first_step_s,
+        steps=len(probe.steps("train")),
+        seconds_per_step=statistics.median(step_s),
+        quartiles=quartiles(step_s), seconds_all=step_s,
+        bare_seconds_per_step=statistics.median(bare),
+        bare_quartiles=quartiles(bare), bare_seconds_all=bare,
+        valid_seconds_per_seq=statistics.median(probe.seconds("valid")),
+        eval_seconds_per_seq=statistics.median(eprobe.seconds("valid")),
+        eval_wall_s=eval_wall, eval_miou=miou, valid_miou=probe.miou.get(
+            "valid"), losses=losses, resume_losses=res,
+        continue_losses=cont, resume_fault_losses=faults,
+        host_syncs_per_step=sum(syncs.values()),
+        host_syncs_where=syncs, peak_mem_gb=peak_gb,
+        launches_per_step=step_launches, launches_run=launches_run,
+        predictions_written=len(written), profiled_step=LOOP_PROFILE_STEP,
+        **prof)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1640,6 +2026,27 @@ def main(argv=None) -> int:
                 f"{json.dumps(f32['vs_bf16_flagship'])}; card vs CPU "
                 f"{json.dumps(f32['card_vs_cpu'])}")
 
+        torch.cuda.empty_cache()
+        lp = phase("loop", lambda: loop_flagship(dev))
+        if lp:
+            log(f"[loop] loader {lp['loader_ms_per_window']:.1f} ms per "
+                f"window (native {lp['native_loader']}); loop "
+                f"{lp['seconds_per_step']:.4f} s/step (quartiles "
+                f"{lp['quartiles']}) vs bare step "
+                f"{lp['bare_seconds_per_step']:.4f} s (quartiles "
+                f"{lp['bare_quartiles']}) on {dline}; valid "
+                f"{lp['valid_seconds_per_seq']:.4f} s/seq, eval "
+                f"{lp['eval_seconds_per_seq']:.4f} s/seq; host syncs per "
+                f"step {lp['host_syncs_per_step']} "
+                f"{json.dumps(lp['host_syncs_where'])}; peak "
+                f"{lp['peak_mem_gb']:.2f} GB; launches per step "
+                f"{lp['launches_per_step']}; "
+                f"{lp['device_ms_per_step']:.2f} device ms, device busy "
+                f"{lp['device_busy_share']:.3f}; hand-written "
+                f"{json.dumps(lp['hand_written'])}; losses {lp['losses']}; "
+                f"resume {lp['resume_losses']} vs {lp['continue_losses']}, "
+                f"faulty resumes {json.dumps(lp['resume_fault_losses'])}")
+
     # launches: the training step (this slice's path, on the packed route);
     # the forwards' counts beside them
     launches = (report.get("train") or {}).get("launches") or {}
@@ -1679,6 +2086,11 @@ def main(argv=None) -> int:
                 for k, v in (report.get("baseline_configs") or {}).items()},
             launches_per_frame_f32=((report.get("per_frame_f32") or {}).get(
                 "launches") or {}).get(name, 0),
+            launches_loop=((report.get("loop") or {}).get(
+                "launches_per_step") or {}).get(name, 0),
+            loop_device_ms_per_step=(((report.get("loop") or {}).get(
+                "hand_written") or {}).get(name) or {}).get(
+                "device_ms_per_step"),
             cases=k.get("cases")))
     report["device_line"] = dline
     if args.out:

@@ -1,14 +1,195 @@
-"""Typed model and runtime configuration of the PyTorch port.
+"""Configuration of the PyTorch port: the hjson ``.cfg`` parser and the
+typed model and runtime configuration.
 
-A copy of ``ModelConfig`` and ``RuntimeConfig`` from the JAX package's
-``config.py`` (same field names, defaults and capacity rules), so that the
-port depends on nothing of that package.  The hjson ``.cfg`` parser is not
-needed by the offline sequence forward and is not copied.
+A copy of the JAX package's ``config.py`` (the same parser, field names,
+defaults and capacity rules), so that the port depends on nothing of that
+package.  Runs are driven by one hjson ``.cfg`` file (``seq_config/``);
+``hjson`` itself is not required: ``loads`` reads the subset the configs
+use plus hjson's common extras -- ``//``/``#``/``/* */`` comments, unquoted
+keys, optional commas, nested objects and arrays, double-, single- and
+triple-single-quoted (multiline) strings, numbers and booleans.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+import textwrap
+
+# ---------------------------------------------------------------------------
+# hjson-subset parser
+# ---------------------------------------------------------------------------
+
+_TOKEN_RE = re.compile(r"""
+    (?P<ws>\s+|//[^\n]*|\#[^\n]*|/\*.*?\*/)
+  | (?P<mstr>'''(?:[^']|'(?!''))*''')
+  | (?P<str>"(?:[^"\\]|\\.)*"|'(?:[^'\\]|\\.)*')
+  | (?P<punct>[{}\[\]:,])
+  | (?P<word>[^\s{}\[\]:,"']+)
+""", re.VERBOSE | re.DOTALL)
+
+
+def _tokenize(text: str):
+    pos = 0
+    while pos < len(text):
+        m = _TOKEN_RE.match(text, pos)
+        if m is None:
+            raise ValueError(f"cfg parse error at char {pos}: {text[pos:pos+40]!r}")
+        pos = m.end()
+        if m.lastgroup == "ws":
+            continue
+        yield m.lastgroup, m.group()
+    yield "eof", ""
+
+
+class _Parser:
+    def __init__(self, text: str):
+        self.toks = list(_tokenize(text))
+        self.i = 0
+
+    def peek(self):
+        return self.toks[self.i]
+
+    def next(self):
+        t = self.toks[self.i]
+        self.i += 1
+        return t
+
+    def parse_value(self):
+        kind, tok = self.peek()
+        if tok == "{":
+            return self.parse_object()
+        if tok == "[":
+            return self.parse_array()
+        self.next()
+        if kind == "mstr":
+            # hjson multiline string: strip the quotes and the common
+            # leading whitespace (hjson trims to the opening-quote column;
+            # textwrap.dedent is the practical equivalent for these configs)
+            body = tok[3:-3]
+            if body.startswith("\n"):
+                body = body[1:]
+            return textwrap.dedent(body).rstrip("\n")
+        if kind == "str":
+            return tok[1:-1].encode().decode("unicode_escape")
+        if tok in ("true", "True"):
+            return True
+        if tok in ("false", "False"):
+            return False
+        if tok in ("null", "None"):
+            return None
+        try:
+            return int(tok)
+        except ValueError:
+            pass
+        try:
+            return float(tok)
+        except ValueError:
+            return tok  # bare word -> string
+
+    def parse_object(self):
+        assert self.next()[1] == "{"
+        out = {}
+        while True:
+            kind, tok = self.peek()
+            if tok == "}":
+                self.next()
+                return out
+            if tok == ",":
+                self.next()
+                continue
+            key = self.next()[1]
+            if kind == "str":
+                key = key[1:-1]
+            assert self.next()[1] == ":", f"expected ':' after key {key!r}"
+            out[key] = self.parse_value()
+
+    def parse_array(self):
+        assert self.next()[1] == "["
+        out = []
+        while True:
+            _, tok = self.peek()
+            if tok == "]":
+                self.next()
+                return out
+            if tok == ",":
+                self.next()
+                continue
+            out.append(self.parse_value())
+
+
+def loads(text: str) -> dict:
+    p = _Parser(text)
+    # allow a bare top-level object without braces (hjson permits it; our
+    # cfgs always use key: {...} sections at top level)
+    if p.peek()[1] == "{":
+        return p.parse_object()
+    out = {}
+    while p.peek()[0] != "eof":
+        kind, key = p.next()
+        if kind == "str":
+            key = key[1:-1]
+        assert p.next()[1] == ":"
+        out[key] = p.parse_value()
+    return out
+
+
+def load_file(path: str) -> dict:
+    with open(path, "r") as f:
+        return loads(f.read())
+
+
+# ---------------------------------------------------------------------------
+# cfgParser-compatible facade (the reference's cfgParser class)
+# ---------------------------------------------------------------------------
+
+class cfgParser:
+    """Drop-in equivalent of the reference's cfgParser class."""
+
+    def __init__(self, cfg_file: str):
+        self.contents = load_file(cfg_file)
+
+    def get_core_vars(self):
+        return self.contents["core"]
+
+    def get_train_vars(self):
+        return self.contents["train"]
+
+    def get_eval_vars(self):
+        return self.contents["eval"]
+
+    def get_model_vars(self):
+        return self.contents["model"]
+
+    def get_lattice_gpu_vars(self):
+        return self.contents["lattice_gpu"]
+
+    def _dataset_name(self):
+        section = self.contents.get("train") or self.contents.get("eval")
+        return section["dataset_name"]
+
+    def get_loader_vars(self):
+        return self.contents[f"loader_{'semantic_kitti' if self._dataset_name() == 'semantickitti' else 'paris_lille'}"]
+
+    def get_loader_semantic_kitti_vars(self):
+        return self.contents["loader_semantic_kitti"]
+
+    def get_loader_paris_lille_vars(self):
+        return self.contents["loader_paris_lille"]
+
+    def get_label_mngr_vars(self):
+        return self.get_loader_vars()["label_mngr"]
+
+    def get_transformer_vars(self):
+        return self.get_loader_vars()["transformer"]
+
+    def get_runtime_vars(self):
+        return self.contents.get("runtime", {})
+
+
+# ---------------------------------------------------------------------------
+# Typed model/runtime configuration
+# ---------------------------------------------------------------------------
 
 FUSION_KINDS = ("linear", "maxpool", "cga", "aflow", "lstm", "gru", "none")
 
@@ -129,3 +310,63 @@ class RuntimeConfig:
         if not self.final_capacity_level0:
             return None
         return self._derived(self.final_capacity_level0, nr_downsamples)
+
+
+def model_config_from_cfg(parser: cfgParser, nr_classes: int) -> ModelConfig:
+    m = parser.get_model_vars()
+    loader = parser.get_loader_vars()
+    return ModelConfig(
+        nr_classes=nr_classes,
+        positions_mode=m["positions_mode"],
+        values_mode=m["values_mode"],
+        pointnet_layers=tuple(m["pointnet_layers"]),
+        pointnet_start_nr_channels=m["pointnet_start_nr_channels"],
+        nr_downsamples=m["nr_downsamples"],
+        nr_blocks_down_stage=tuple(m["nr_blocks_down_stage"]),
+        nr_blocks_bottleneck=m["nr_blocks_bottleneck"],
+        nr_blocks_up_stage=tuple(m["nr_blocks_up_stage"]),
+        nr_levels_down_with_normal_resnet=m["nr_levels_down_with_normal_resnet"],
+        nr_levels_up_with_normal_resnet=m["nr_levels_up_with_normal_resnet"],
+        compression_factor=m["compression_factor"],
+        dropout_last_layer=m["dropout_last_layer"],
+        experiment=m.get("experiment", "none"),
+        sequence_learning=m["sequence_learning"],
+        rnn_modules=tuple(m["rnn_modules"]),
+        # the reference never forwards these two to its AFlow modules (its
+        # behaviour is always true/true); the cfg is honoured here
+        train_alpha_beta=m.get("train_alpha_beta", True),
+        use_center=m.get("use_center", True),
+        frames_per_seq=(loader["frames_per_seq"] if m["sequence_learning"] else 1),
+        compute_dtype=parser.get_runtime_vars().get("compute_dtype", "bfloat16"),
+    )
+
+
+def runtime_config_from_cfg(parser: cfgParser) -> RuntimeConfig:
+    lat = parser.get_lattice_gpu_vars()
+    sigma_str = str(lat.get("sigma_0", "0.6 3")).split()
+    sigma = float(sigma_str[0])
+    rt = parser.get_runtime_vars()
+    cap = rt.get("capacity_level0", lat.get("hash_table_capacity", 65536))
+    return RuntimeConfig(
+        max_points=rt.get("max_points", 131072),
+        capacity_level0=int(cap),
+        capacity_decay=rt.get("capacity_decay", 0.5),
+        min_capacity=rt.get("min_capacity", 4096),
+        sigma=sigma,
+        compute_dtype=rt.get("compute_dtype", "float32"),
+        batched_pointnet=rt.get("batched_pointnet", True),
+        remat_mode=rt.get("remat_mode", "full"),
+        trim_capacity_level0=int(rt.get("trim_capacity_level0", 0)),
+        final_capacity_level0=int(rt.get("final_capacity_level0", 0)),
+    )
+
+
+def nr_classes_from_cfg(parser: cfgParser) -> int:
+    """Class count of the dataset: 26/20 for SemanticKITTI and 12/10 for
+    Paris-Lille, with and without the moving classes."""
+    loader = parser.get_loader_vars()
+    name = parser._dataset_name()
+    moving = loader.get("include_moving_classes", False)
+    if name == "semantickitti":
+        return 26 if moving else 20
+    return 12 if moving else 10

@@ -29,10 +29,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig, RuntimeConfig
+from ..device import resolve_device
 from ..models.lnn_seq import SITES, LNNSeq, init_state, site_level
 from ..models.losses import segmentation_loss
 from ..ops import lattice_ops as lo
@@ -426,6 +428,23 @@ class SeqBatch(NamedTuple):
     labels: Any
     mask: Any
 
+    @staticmethod
+    def stack(frame_lists, device=None) -> "SeqBatch":
+        """frame_lists: a list over the batch of lists over time of
+        ``FrameBatch``; the tensors are made on ``device`` (CUDA by
+        default), from pinned host memory without a host sync on CUDA."""
+        dev = resolve_device(device)
+
+        def take(attr):
+            a = torch.from_numpy(np.stack(
+                [np.stack([getattr(f, attr) for f in seq])
+                 for seq in frame_lists]))
+            if dev.type == "cuda":
+                return a.pin_memory().to(dev, non_blocking=True)
+            return a
+        return SeqBatch(take("positions"), take("values"), take("labels"),
+                        take("mask"))
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -447,14 +466,16 @@ def create_train_state(cfg: ModelConfig, rt: RuntimeConfig, lr: float,
 
 
 def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
-                    ignore_index: int = 0):
+                    ignore_index: int = 0, watch_grads: bool = False):
     """The training and evaluation steps of one model.
 
     ``train_step(state, batch, lr_scale) -> (state, logp (1, P, classes),
     metrics)``: the loss of the last frame (0.5 Lovász + 0.5 NLL), its
     gradient through every frame, and one AdamW step at ``lr * lr_scale``.
     Metrics (0-d tensors on the device): loss, lovasz, nll, grad_norm (the
-    global norm of the gradients), nr_vertices and vertex_overflow.
+    global norm of the gradients), nr_vertices and vertex_overflow; with
+    ``watch_grads`` also grad_norms, {parameter name: its gradient's norm}
+    (what ``wandb.watch`` tracks in the reference).
     ``eval_step(batch) -> (logp, metrics)`` runs without gradients, and so
     does ``train_step.loss_step(batch)``, the forward and loss alone;
     ``train_step.grad_step(batch) -> (loss, {name: grad})`` returns
@@ -501,13 +522,15 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
 
     def train_step(state: TrainState, batch: SeqBatch, lr_scale):
         loss, logp, parts, aux = gradients(batch)
-        grad_norm = torch.sqrt(torch.stack(
-            [(p.grad.float() ** 2).sum() for p in params.values()]).sum())
+        gsq = torch.stack([(p.grad.float() ** 2).sum()
+                           for p in params.values()])
+        metrics = metrics_of(loss, parts, aux)
+        metrics["grad_norm"] = torch.sqrt(gsq.sum())
+        if watch_grads:
+            metrics["grad_norms"] = dict(zip(params, torch.sqrt(gsq)))
         optim.set_lr_scale(state.optimizer, lr_scale)
         state.optimizer.step()
         state.step += 1
-        metrics = metrics_of(loss, parts, aux)
-        metrics["grad_norm"] = grad_norm
         return state, logp.detach()[None], metrics
 
     @torch.no_grad()
