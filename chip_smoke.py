@@ -113,7 +113,22 @@ Phases, in order; any failure exits non-zero without the final line:
     ``max_exp_avg_sq`` dropped is recorded), every scan has its devkit
     ``.label`` and the submission check passes, and a reference-schema
     ``.pt`` of the weights loads strictly;
-16. one JSON line with the kernels, the device line, and the result line
+16. the experiment ablations (each of ``slice_no_deform``,
+    ``pointnet_no_elevate``, ``pointnet_no_local_mean``,
+    ``pointnet_no_elevate_no_local_mean``, ``splat`` and
+    ``attention_pool``) at phase 4's geometry, bf16, the four that change
+    the pointnet's reduced width behind the early fusion "none": phase
+    12's forward measurements (``CONFIG_ITERS`` timed forwards, device time,
+    launches, peak memory), with K1 and K2 launched, K3 launched except
+    without the local mean, K4 and K5 never (an experiment runs the
+    per-frame pointnet), and card vs CPU at the reduced geometry;
+    ``pointnet_no_local_mean`` and ``attention_pool`` also through both
+    streaming paths (phase 10's measurements), each final frame against
+    the offline forward; one warm and ``ABLATION_STEPS`` timed training
+    steps of ``attention_pool`` and of the flagship with
+    ``dropout_last_layer`` 0.2, finite losses, every step's dropped share
+    within ``DROPPED_ATOL`` of the rate;
+17. one JSON line with the kernels, the device line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Phase 8 also reports the deform slice's gather backward
@@ -221,6 +236,23 @@ LOOP_EDITS = {
              ("nr_clouds_to_read: -1",
               "nr_clouds_to_read: -1\n    measure_sequence_lengths: true")),
 }
+
+# phase 16: the experiment ablations (the JAX package's
+# config.VALID_EXPERIMENTS but "none"), at phase 4's geometry
+EXPERIMENTS = ("slice_no_deform", "pointnet_no_elevate",
+               "pointnet_no_local_mean", "pointnet_no_elevate_no_local_mean",
+               "splat", "attention_pool")
+NO_LOCAL_MEAN = ("pointnet_no_local_mean",
+                 "pointnet_no_elevate_no_local_mean")
+STREAMED_EXPERIMENTS = ("pointnet_no_local_mean", "attention_pool")
+# the kernels every experiment's forward launches (K3 also, with the local
+# mean; never K4 or K5: an experiment runs the per-frame pointnet)
+ABLATION_KERNELS = ("fused_simplex_pack", "sorted_segment_scan")
+ABLATION_STEPS = 3     # timed training steps after the warm one
+DROPOUT = 0.2
+# the dropped share of the 131,072 x 192 slice features lies within 4e-4
+# of the rate at 5 standard deviations; a mask of another rate misses this
+DROPPED_ATOL = 0.02
 
 KERNELS = {
     "fused_simplex_pack": dict(
@@ -880,17 +912,23 @@ def _structure_diff(a, b, prefix=""):
 def card_vs_cpu(dev, cfg=None, rt_kw=SMALL_RT, atol=LOGP_ATOL, data=None):
     """The forward of ``cfg`` (default: the flagship) on the card and on the
     CPU at the reduced geometry, on ``data`` (default: the reduced
-    sequence), log-probabilities within ``atol``."""
+    sequence), log-probabilities within ``atol``; the lattice as ``cfg``
+    builds it (without the local mean under the no-local-mean
+    experiments)."""
+    from temporal_latticenet_tpu_torch.models.pointnet import \
+        subtract_local_mean
     from temporal_latticenet_tpu_torch.ops import seq_lattice as sl
 
     if data is None:
         data = lidar(rt_kw["max_points"])
     cpu_model, cpu_fwd, rt = make_forward(rt_kw, "cpu", cfg=cfg)
     _, dev_fwd, _ = make_forward(rt_kw, dev, cpu_model.state_dict(), cfg)
+    mean = subtract_local_mean(cpu_model.cfg)
     lats = [sl.build_sequence_lattice(
         torch.as_tensor(data[0], device=d), torch.as_tensor(data[2], device=d),
-        rt.sigma, rt.capacities(2), 2,
-        pn_values=torch.as_tensor(data[1], device=d), want_row_rel=True)
+        rt.sigma, rt.capacities(2), 2, subtract_local_mean=mean,
+        pn_values=torch.as_tensor(data[1], device=d) if mean else None,
+        want_row_rel=True)
         for d in ("cpu", dev)]
     bad, float_max = _structure_diff(*lats)
     if bad:
@@ -1080,10 +1118,10 @@ def train_card_vs_cpu(dev):
 # ---------------------------------------------------------------------------
 
 def stream_fns(model, rt_kw, incremental: bool, max_new: int = MAX_NEW):
-    from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.config import RuntimeConfig
     from temporal_latticenet_tpu_torch.train import engine
 
-    cfg, rt = ModelConfig(), RuntimeConfig(**rt_kw)
+    cfg, rt = model.cfg, RuntimeConfig(**rt_kw)
     if incremental:
         return engine.make_streaming_inference_incremental(model, cfg, rt,
                                                            max_new)
@@ -1199,7 +1237,8 @@ def logp_agreement(a, b, mask_last, what):
 
 
 def stream_path(dev, model, frames, incremental: bool):
-    """Phase 10 for one streaming path at full width."""
+    """Phase 10 for one streaming path at full width (also phase 16's, for
+    its experiments: the path runs ``model.cfg``)."""
     from temporal_latticenet_tpu_torch.ops import _cuda
 
     n = len(frames[0])
@@ -1900,6 +1939,131 @@ def loop_flagship(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the experiment ablations and the slice head's dropout
+# ---------------------------------------------------------------------------
+
+def ablation_config(experiment: str, **kw):
+    """The flagship with ``experiment``; the experiments that change the
+    pointnet's reduced width run behind the early fusion "none" (the JAX
+    package's own test has it so; no early fusion cell takes their
+    width)."""
+    from temporal_latticenet_tpu_torch.models.pointnet import reduced_width
+
+    cfg = model_config(experiment=experiment, **kw)
+    if reduced_width(cfg) != cfg.early_channels:
+        cfg = dataclasses.replace(cfg,
+                                  rnn_modules=("none",) + cfg.rnn_modules[1:])
+    return cfg
+
+
+def ablation_forward(dev, data, experiment):
+    """One experiment at the flagship geometry: phases 12-13's forward
+    (launches, ``CONFIG_ITERS`` timed forwards, device time), the launches
+    this experiment's path must and must not make, and card vs CPU at the
+    reduced geometry.  Returns (model, offline logp, result)."""
+    cfg = ablation_config(experiment)
+    model, fwd, rt = make_forward(FLAGSHIP_RT, dev, cfg=cfg)
+    logp, res = config_forward(data, fwd, rt, ABLATION_KERNELS)
+    no_k3 = experiment in NO_LOCAL_MEAN
+    launches = res["launches"]
+    wrong = {k: launches[k] for k in KERNELS
+             if (launches[k] > 0) != (k in ABLATION_KERNELS
+                                      or (k == "seg_sum_tails" and not no_k3))}
+    if wrong:
+        raise AssertionError(f"{experiment}: unexpected launches {wrong}")
+    res["rnn_modules"] = list(cfg.rnn_modules)
+    res["card_vs_cpu"] = card_vs_cpu(dev, cfg)
+    return model, logp, res
+
+
+def ablation_streaming(dev, model, frames, logp_offline):
+    """Both streaming paths of ``model``'s experiment (phase 10's
+    measurements), each final frame against the offline forward."""
+    from temporal_latticenet_tpu_torch.config import RuntimeConfig
+    from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
+
+    smodel = LNNSeq(model.cfg, RuntimeConfig(**STREAM_RT), device=dev)
+    smodel.load_state_dict(model.state_dict(), strict=True)
+    smodel.eval()
+    res = {}
+    for name, inc in (("plain", False), ("incremental", True)):
+        logp, r = stream_path(dev, smodel, frames, incremental=inc)
+        r["vs_offline"] = logp_agreement(logp, logp_offline, frames[2][-1],
+                                         f"{name} streaming vs offline")
+        res[name] = r
+    return res
+
+
+def ablation_step(dev, cfg):
+    """One warm and ``ABLATION_STEPS`` timed training steps of ``cfg`` at
+    the flagship geometry (full remat, the default K4 route): finite
+    losses, launches, peak memory, the device time of one more step under
+    ``torch.profiler``; under dropout, every step's dropped share of
+    the final frame's slice features."""
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    _, state, train_step = make_trainer(FLAGSHIP_RT, dev, cfg=cfg)
+    batch = train_batch(FLAGSHIP_RT["max_points"], dev)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    state, _, m = train_step(state, batch, 1.0)              # warm step
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    ms, secs = [m], []
+    for _ in range(ABLATION_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, m = train_step(state, batch, 1.0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        ms.append(m)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    events, wall_us = device_events(lambda: train_step(state, batch, 1.0), 1)
+    losses = [float(m["loss"]) for m in ms]
+    norms = [float(m["grad_norm"]) for m in ms]
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or gradient norm: {losses}, "
+                             f"{norms}")
+    res = dict(launches=launches, losses=losses, grad_norms=norms,
+               seconds_per_step=statistics.median(secs), seconds_all=secs,
+               peak_mem_gb=peak, **device_summary(events, wall_us, 1, "step"))
+    if cfg.dropout_last_layer > 0:
+        dropped = [float(m["dropped_share"]) for m in ms]
+        if any(abs(d - cfg.dropout_last_layer) > DROPPED_ATOL
+               for d in dropped):
+            raise AssertionError(f"dropped shares {dropped}, not within "
+                                 f"{DROPPED_ATOL} of "
+                                 f"{cfg.dropout_last_layer}")
+        res["dropped_share"] = dropped
+    return res
+
+
+def ablations(dev, data):
+    """Phase 16: every experiment at the flagship geometry (bf16; each one
+    forces the per-frame pointnet route: K1-K3, no K4 or K5, and no K3
+    without the local mean), card vs CPU; both streaming paths of
+    ``pointnet_no_local_mean`` and ``attention_pool`` against their offline
+    forward; a training step of ``attention_pool`` and of the flagship with
+    ``dropout_last_layer`` 0.2."""
+    frames = tuple(torch.as_tensor(a, device=dev) for a in data)
+    res = {}
+    for exp in EXPERIMENTS:
+        model, logp, res[exp] = ablation_forward(dev, data, exp)
+        if exp in STREAMED_EXPERIMENTS:
+            res[exp]["streaming"] = ablation_streaming(dev, model, frames,
+                                                       logp)
+        del model
+        torch.cuda.empty_cache()
+    res["attention_pool"]["train"] = ablation_step(
+        dev, ablation_config("attention_pool"))
+    torch.cuda.empty_cache()
+    res["dropout"] = dict(dropout_last_layer=DROPOUT, train=ablation_step(
+        dev, model_config(dropout_last_layer=DROPOUT)))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2047,6 +2211,34 @@ def main(argv=None) -> int:
                 f"resume {lp['resume_losses']} vs {lp['continue_losses']}, "
                 f"faulty resumes {json.dumps(lp['resume_fault_losses'])}")
 
+        torch.cuda.empty_cache()
+        abl = phase("ablations", lambda: ablations(dev, data))
+        for exp in EXPERIMENTS if abl else ():
+            r = abl[exp]
+            log(f"[ablations] {exp}: {r['seconds_per_seq']:.4f} s/seq "
+                f"(quartiles {r['quartiles']}), {r['device_ms_per_seq']:.2f} "
+                f"device ms and {r['device_launches_per_seq']:.0f} launches "
+                f"per seq, peak {r['peak_mem_gb']:.2f} GB on {dline}; "
+                f"launches {r['launches']}; card vs CPU "
+                f"{json.dumps(r['card_vs_cpu'])}")
+            for name, st in (r.get("streaming") or {}).items():
+                log(f"[ablations] {exp} streaming {name}: non-final "
+                    f"{st['non_final_ms']:.2f} ms, final {st['final_ms']:.2f} "
+                    f"ms, {st['device_ms_per_frame']:.2f} device ms per "
+                    f"frame; launches per frame {st['launches_per_frame']}; "
+                    f"vs offline {json.dumps(st['vs_offline'])}")
+        for name, r in (("attention_pool", (abl or {}).get(
+                "attention_pool", {}).get("train")),
+                        ("dropout", (abl or {}).get("dropout", {}).get(
+                            "train"))):
+            if r:
+                log(f"[ablations] {name} step: {r['seconds_per_step']:.4f} "
+                    f"s/step, {r['device_ms_per_step']:.2f} device ms, "
+                    f"busy {r['device_busy_share']:.3f}, peak "
+                    f"{r['peak_mem_gb']:.2f} GB; losses "
+                    f"{r['losses']}; launches {r['launches']}; dropped "
+                    f"{r.get('dropped_share')}")
+
     # launches: the training step (this slice's path, on the packed route);
     # the forwards' counts beside them
     launches = (report.get("train") or {}).get("launches") or {}
@@ -2088,6 +2280,9 @@ def main(argv=None) -> int:
                 "launches") or {}).get(name, 0),
             launches_loop=((report.get("loop") or {}).get(
                 "launches_per_step") or {}).get(name, 0),
+            launches_ablations={
+                exp: ((report.get("ablations") or {}).get(exp) or {}).get(
+                    "launches", {}).get(name, 0) for exp in EXPERIMENTS},
             loop_device_ms_per_step=(((report.get("loop") or {}).get(
                 "hand_written") or {}).get(name) or {}).get(
                 "device_ms_per_step"),

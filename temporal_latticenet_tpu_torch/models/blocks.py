@@ -87,7 +87,9 @@ class Linear(nn.Module):
 
 
 class MaskedGroupNorm(nn.Module):
-    """GroupNorm over the valid vertex rows only (eps 1e-5)."""
+    """GroupNorm over the valid rows only (eps 1e-5): the vertex rows
+    [1, count), or the rows of ``mask`` where one is given (the attention
+    pool's point rows, whose validity is scattered)."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
         super().__init__()
@@ -101,12 +103,15 @@ class MaskedGroupNorm(nn.Module):
             self.weight.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x, count):
+    def forward(self, x, count, mask=None):
         cap, c = x.shape
         groups = gn_num_groups(c)
         cpg = c // groups
-        rows = torch.arange(cap, device=x.device)
-        valid = (rows > 0) & (rows < count)
+        if mask is None:
+            rows = torch.arange(cap, device=x.device)
+            valid = (rows > 0) & (rows < count)
+        else:
+            valid = mask
         vf = valid.to(torch.float32)[:, None, None]
         n = torch.clamp(valid.to(torch.float32).sum(), min=1.0)
         xg = x.reshape(cap, groups, cpg)
@@ -126,15 +131,20 @@ class Gn(nn.Module):
         super().__init__()
         self.gn = MaskedGroupNorm(channels)
 
-    def forward(self, x, count):
-        return self.gn(x, count)
+    def forward(self, x, count, mask=None):
+        return self.gn(x, count, mask)
 
 
 class Conv1x1(Linear):
-    """Per-vertex linear map; masks the result to the valid rows."""
+    """Per-vertex linear map; masks the result to the valid rows (those of
+    ``mask`` where one is given)."""
 
-    def forward(self, x, count):
-        return lo.mask_rows(super().forward(x), count)
+    def forward(self, x, count, mask=None):
+        y = super().forward(x)
+        if mask is not None:
+            return torch.where(mask[:, None], y,
+                               torch.zeros((), device=y.device))
+        return lo.mask_rows(y, count)
 
 
 class LatticeConv(nn.Module):
@@ -166,8 +176,8 @@ class GnRelu1x1(nn.Module):
         self.gn = Gn(in_channels)
         self.conv = Conv1x1(in_channels, out_channels, use_bias)
 
-    def forward(self, x, count):
-        return self.conv(torch.relu(self.gn(x, count)), count)
+    def forward(self, x, count, mask=None):
+        return self.conv(torch.relu(self.gn(x, count, mask)), count, mask)
 
 
 class GnReluConv(nn.Module):
@@ -247,16 +257,34 @@ class GnReluFinefy(nn.Module):
 
 class DeformSlice(nn.Module):
     """Deform-slice + classifier: per point, gather the 4 simplex-vertex
-    features, predict a delta to the barycentric weights (zero-initialised),
-    blend, classify linearly."""
+    features, predict a delta to the barycentric weights (zero-initialised;
+    no delta and no ``linear_deltaW`` without ``deform``, the
+    ``slice_no_deform`` experiment), blend, drop out, classify linearly.
 
-    def __init__(self, channels, nr_classes, deform=True, dp1=4):
+    Dropout (rate ``dropout``) runs only where the caller passes a ``keep``
+    mask, drawn by :meth:`dropout_keep` from an explicit generator: the
+    training step draws one for the final frame; every forward without
+    gradients passes none."""
+
+    def __init__(self, channels, nr_classes, deform=True, dropout=0.0,
+                 dp1=4):
         super().__init__()
+        self.channels = channels
         self.deform = deform
-        self.linear_deltaW = Linear(dp1 * channels + dp1, dp1, init="zeros")
+        self.dropout = dropout
+        if deform:
+            self.linear_deltaW = Linear(dp1 * channels + dp1, dp1,
+                                        init="zeros")
         self.linear_clasify = Linear(channels, nr_classes)
 
-    def forward(self, values, point_vertex, point_bary):
+    def dropout_keep(self, points: int, gen: torch.Generator):
+        """A (points, channels) bool mask, True where a feature is kept
+        (with probability 1 - ``dropout``), drawn from ``gen`` on its
+        device."""
+        return torch.rand((points, self.channels), generator=gen,
+                          device=gen.device) < 1.0 - self.dropout
+
+    def forward(self, values, point_vertex, point_bary, keep=None):
         p, dp1 = point_vertex.shape
         # out-of-range indices (only under a flagged trim overflow) clamp
         # like a JAX gather; the backward leaves out the rows that read the
@@ -270,4 +298,7 @@ class DeformSlice(nn.Module):
                                 torch.zeros((), device=delta.device))
             bary = point_bary + delta
         sliced = torch.einsum("pvc,pv->pc", g, bary)
+        if keep is not None:
+            sliced = torch.where(keep, sliced / (1.0 - self.dropout),
+                                 torch.zeros((), device=sliced.device))
         return self.linear_clasify(sliced)

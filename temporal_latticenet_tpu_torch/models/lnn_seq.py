@@ -36,7 +36,7 @@ from ..ops import vertex_table as vt
 from .blocks import (BottleneckBlock, DeformSlice, GnReluCoarsen, GnReluFinefy,
                      ResnetBlock)
 from .fusion import make_fusion
-from .pointnet import PointNetSeq
+from .pointnet import PointNetSeq, subtract_local_mean
 
 SITES = ("early", "middle", "bottleneck", "late")
 
@@ -157,7 +157,8 @@ class LNNSeq(nn.Module):
                     input_size=inputs[i])
 
         self.slice_fast_cuda = DeformSlice(
-            cur, cfg.nr_classes, deform=cfg.experiment != "slice_no_deform")
+            cur, cfg.nr_classes, deform=cfg.experiment != "slice_no_deform",
+            dropout=cfg.dropout_last_layer)
         self.init_weights(seed)
         self.to(self.device)
 
@@ -193,8 +194,9 @@ class LNNSeq(nn.Module):
                     [seqlat.levels[l].counts[t] for l in range(L + 1)],
                     dist, state.tables)
         tables = list(state.tables)
-        tables[0], dist = lo.distribute(tables[0], positions, mask,
-                                        self.rt.sigma)
+        tables[0], dist = lo.distribute(
+            tables[0], positions, mask, self.rt.sigma,
+            subtract_local_mean=subtract_local_mean(self.cfg))
         nbrs, links = [lo.build_neighbor_table(tables[0])], []
         for i in range(L):
             tables[i + 1], link = lo.grow_coarse_table(tables[i],
@@ -206,7 +208,7 @@ class LNNSeq(nn.Module):
 
     def forward(self, state: SeqState, seqlat=None, dist=None,
                 pre_reduced=None, final: bool = True, positions=None,
-                values=None, mask=None):
+                values=None, mask=None, dropout_keep=None):
         """One frame.  The structure comes from ``seqlat``: the precomputed
         sequence lattice (a full or trimmed view, with this frame's
         ``DistributeOut`` ``dist`` and either ``pre_reduced``, its (cap0,
@@ -214,7 +216,9 @@ class LNNSeq(nn.Module):
         ``values``), a ``FrameStructures`` (with
         ``dist`` and the frame's (P, V) ``values``), or None: the frame's
         (P, 3) ``positions``, ``values`` and (P,) ``mask`` are distributed
-        onto ``state.tables``.  Returns (logits or None, new state, aux)."""
+        onto ``state.tables``.  ``dropout_keep``: the final frame's (P, C)
+        dropout mask of the slice head (``DeformSlice.dropout_keep``), or
+        None for no dropout.  Returns (logits or None, new state, aux)."""
         cfg, rt = self.cfg, self.rt
         L = cfg.nr_downsamples
         t = state.t
@@ -239,7 +243,8 @@ class LNNSeq(nn.Module):
                 seqlat, lo.FrameStructures)
             pre_reduced = self.point_net_seq.reduce_frame(
                 dist, values_rows, nbrs[0].idx.shape[0], counts[0],
-                seqlat.nr_points[t] if offline else None,
+                seqlat.nr_points[t] if offline and seqlat.nr_points
+                is not None else None,
                 drop_past_cap=offline)
         lv, h[0] = self.point_net_seq.fuse_and_conv(
             pre_reduced, nbrs[0], counts[0], h[0], pc[0], is_first)
@@ -299,7 +304,8 @@ class LNNSeq(nn.Module):
         for block in self.resnet_blocks_per_up_lvl_list[str(L - 1)]:
             lv = block(lv, nbrs[0], counts[0])
 
-        sv = self.slice_fast_cuda(lv, dist.point_vertex, dist.point_bary)
+        sv = self.slice_fast_cuda(lv, dist.point_vertex, dist.point_bary,
+                                  dropout_keep)
         logp = torch.log_softmax(sv, dim=-1)
         caps = rt.capacities(L)
         occupancy = torch.stack([torch.as_tensor(counts[l])

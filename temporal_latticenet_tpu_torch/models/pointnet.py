@@ -1,21 +1,40 @@
 """PointNet splat head (port of the JAX package's ``PointNetSeq``: the
-batched ``_reduce_sorted``, the per-frame path of ``__call__`` for
-experiment "none" in bf16 and float32, and ``_fuse_and_conv``).
+batched ``_reduce_sorted``, the per-frame path of ``__call__`` with every
+``experiment`` ablation, in bf16 and float32, and ``_fuse_and_conv``).
 
 Offline, the per-row MLP runs for all frames at once over the union-sorted
 rows; every (vertex, frame) bucket is a contiguous sub-run there, so the
 per-vertex max is one segmented max scan (kernel K4, or K5 and K4 under
 ``TLN_MAXSCAN_PACKED=1``, through ``ops/segment.sorted_packed_max``) read
 at the bucket tails; its gradient flows straight through to the winning
-rows.  Per frame (streaming, and the offline route without the batched
-pointnet), one frame's rows go through the MLP and one packed scatter max
-(``ops/segment.segment_max_with_bary_packed``) in bf16, or the float32
-``segment_max_with_argmax``.  Each frame then goes on with its reduced
-tensor: early temporal fusion and the first lattice convolution.  Reference
-quirks kept: the winning row's barycentric weight is concatenated per
-channel, vertices touched by fewer than 4 rows are zeroed (except under
-early maxpool fusion, where the rows a frame does not touch read -9900
-before the fusion), and ``reference_bary_quirk``.
+rows.  Per frame (streaming, the offline route without the batched
+pointnet, and every experiment), one frame's rows go through the MLP and
+one packed scatter max (``ops/segment.segment_max_with_bary_packed``) in
+bf16, or the float32 ``segment_max_with_argmax``.  Each frame then goes on
+with its reduced tensor: early temporal fusion and the first lattice
+convolution.  Reference quirks kept: the winning row's barycentric weight
+is concatenated per channel, vertices touched by fewer than 4 rows are
+zeroed (except under early maxpool fusion, where the rows a frame does not
+touch read -9900 before the fusion), and ``reference_bary_quirk``.
+
+The experiments (the reference's ablations; C = ``pointnet_layers[-1]``,
+V the point values' width):
+
+* ``slice_no_deform``, ``pointnet_no_local_mean``: the pointnet as
+  ``none`` (the latter's rows hold raw positions, from the lattice build);
+* ``pointnet_no_elevate`` and ``..._no_local_mean``: no MLP; the float32
+  rows (rel, values) go through the argmax max, width 2(3+V);
+* ``splat``: no MLP; the rows' mean per vertex, width 3+V, no barycentric
+  weights, zeroed only where no row lands;
+* ``attention_pool``: the MLP over (rel, values, bary), then each row plus
+  ``gamma`` times its vertex's max, a bias-free 1x1 ``pre_conv`` and two
+  GN-ReLU-1x1s (``att_activ``, ``att_scores``) whose GroupNorm statistics
+  run over the valid rows; the exponentiated scores, normalised per
+  vertex, weight a sum of the rows: width C.
+
+:func:`reduced_width` gives the width; an early fusion other than "none"
+needs 2C and raises for the experiments that change it, as the JAX
+package cannot run them either.
 """
 
 from __future__ import annotations
@@ -26,28 +45,74 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import lattice_ops as lo
 from ..ops.segment import (segment_max_with_argmax,
-                           segment_max_with_bary_packed, sorted_packed_max)
-from .blocks import LatticeConv, Linear, torch_dtype
+                           segment_max_with_bary_packed, segment_mean,
+                           sorted_packed_max)
+from .blocks import GnRelu1x1, LatticeConv, Linear, torch_dtype
 from .fusion import make_fusion
+
+NO_ELEVATE = ("pointnet_no_elevate", "pointnet_no_elevate_no_local_mean",
+              "splat")
+NO_LOCAL_MEAN = ("pointnet_no_local_mean",
+                 "pointnet_no_elevate_no_local_mean")
+
+
+def subtract_local_mean(cfg: ModelConfig) -> bool:
+    """Whether the rows' positions are taken relative to their vertex's
+    mean (all but the no-local-mean experiments)."""
+    return cfg.experiment not in NO_LOCAL_MEAN
+
+
+def reduced_width(cfg: ModelConfig, n_values: int = 1) -> int:
+    """The width of the pointnet's per-vertex reduction, which the early
+    fusion and ``last_conv`` read."""
+    c = cfg.pointnet_layers[-1]
+    if cfg.experiment == "splat":
+        return 3 + n_values
+    if cfg.experiment in NO_ELEVATE:
+        return 2 * (3 + n_values)
+    if cfg.experiment == "attention_pool":
+        return c
+    return 2 * c
 
 
 class PointNetSeq(nn.Module):
     def __init__(self, cfg: ModelConfig, n_values: int = 1):
         super().__init__()
         self.cfg = cfg
-        widths = [3 + n_values] + list(cfg.pointnet_layers)
+        exp = cfg.experiment
+        width = reduced_width(cfg, n_values)
+        early = cfg.sequence_learning and cfg.rnn_modules[0] != "none"
+        if early and width != cfg.early_channels:
+            raise ValueError(
+                f"experiment {exp!r} reduces to {width} channels, but the "
+                f"early {cfg.rnn_modules[0]!r} fusion takes "
+                f"{cfg.early_channels}: use the early fusion 'none'")
+        widths = [3 + n_values + (exp == "attention_pool")] \
+            + list(cfg.pointnet_layers)
         self.layers = nn.ModuleList(
             Linear(widths[i], widths[i + 1], init="kaiming_normal")
-            for i in range(len(cfg.pointnet_layers)))
-        self.last_conv = LatticeConv(cfg.early_channels,
-                                     cfg.pointnet_start_nr_channels,
+            for i in range(0 if exp in NO_ELEVATE
+                           else len(cfg.pointnet_layers)))
+        if exp == "attention_pool":
+            c = cfg.pointnet_layers[-1]
+            self.gamma = nn.Parameter(torch.ones(c))
+            self.pre_conv = Linear(c, c, bias=False, init="kaiming_normal")
+            self.att_activ = GnRelu1x1(c, c, use_bias=False)
+            self.att_scores = GnRelu1x1(c, c, use_bias=True)
+        self.last_conv = LatticeConv(width, cfg.pointnet_start_nr_channels,
                                      use_bias=False, dtype=cfg.compute_dtype)
-        if cfg.sequence_learning and cfg.rnn_modules[0] != "none":
+        if early:
             self.fusion_module = make_fusion(
                 cfg.rnn_modules[0], cfg.early_channels, cfg,
-                input_size=2 * cfg.pointnet_layers[-1])
+                input_size=width)
         else:
             self.fusion_module = None
+
+    def init_weights(self, gen):
+        """``gamma`` starts at 1 (the submodules initialise themselves)."""
+        if hasattr(self, "gamma"):
+            with torch.no_grad():
+                self.gamma.fill_(1.0)
 
     def _mlp(self, x, cd):
         n = len(self.layers)
@@ -68,12 +133,15 @@ class PointNetSeq(nn.Module):
 
     def reduce_frame(self, dist, values_rows, cap: int, count=None,
                      nr_points=None, drop_past_cap: bool = False):
-        """One frame's MLP + max: the streaming path, and the offline
-        non-batched route.  In bf16, one packed scatter max carries the
-        maxima and the winning rows' barycentric weights; in float32,
-        ``segment_max_with_argmax`` and a gather of the winning row's weight,
-        which under ``reference_bary_quirk`` reads row 0's weight for every
-        winning row index outside [0, count] (the reference's indexing).
+        """One frame's MLP + reduction: the streaming path, the offline
+        non-batched route, and every experiment.  Without an experiment, in
+        bf16, one packed scatter max carries the maxima and the winning
+        rows' barycentric weights; in float32 (and on the float32 rows of
+        the no-elevate experiments), ``segment_max_with_argmax`` and a
+        gather of the winning row's weight, which under
+        ``reference_bary_quirk`` reads row 0's weight for every winning row
+        index outside [0, count] (the reference's indexing).  ``splat`` and
+        ``attention_pool`` reduce as the module docstring says.
 
         Args:
           dist: this frame's ``DistributeOut``; values_rows: (P*4, V)
@@ -84,27 +152,35 @@ class PointNetSeq(nn.Module):
           drop_past_cap: leave out the rows whose vertex lies at or past
             ``cap``: a trimmed view of the sequence lattice has them under a
             flagged trim overflow; the streaming tables never do.
-        Returns (cap, 2*C) float32: per-channel maxima, then the winning
-        rows' barycentric weights.
+        Returns (cap, :func:`reduced_width`) float32.
         """
         cfg = self.cfg
-        if cfg.experiment != "none":
-            raise NotImplementedError(
-                f"the pointnet experiment {cfg.experiment!r} is not ported to "
-                f"PyTorch yet")
+        exp = cfg.experiment
         cd = torch_dtype(cfg.compute_dtype)
-        if cd == torch.bfloat16 and cfg.reference_bary_quirk:
-            raise ValueError("reference_bary_quirk needs the float32 argmax "
-                             "path (compute_dtype='float32')")
         rid, rvalid = dist.row_vertex, dist.row_valid
         if drop_past_cap:
             inside = rid < cap
             rid, rvalid = torch.where(inside, rid, 0), rvalid & inside
-        x = self._mlp(torch.cat([dist.row_rel_pos, values_rows], dim=-1)
-                      .to(cd), cd)
+        x = torch.cat([dist.row_rel_pos, values_rows], dim=-1)
+        if exp == "attention_pool":
+            x = torch.cat([x, dist.row_bary[:, None]], dim=-1)
+        if len(self.layers):
+            # the rows in compute_dtype; the no-elevate rows stay float32
+            x = self._mlp(x.to(cd), cd)
         if nr_points is None:
             nr_points = lo.segment_sum(rvalid.to(torch.float32), rid, cap)
-        if cd == torch.bfloat16:
+        zero = torch.zeros((), device=x.device)
+        if exp == "splat":
+            return torch.where((nr_points > 0)[:, None],
+                               segment_mean(x, rid, cap, rvalid), zero)
+        if exp == "attention_pool":
+            return torch.where((nr_points >= 4)[:, None],
+                               self._attention_pool(x, rid, rvalid, cap),
+                               zero)
+        if x.dtype == torch.bfloat16:
+            if cfg.reference_bary_quirk:
+                raise ValueError("reference_bary_quirk needs the float32 "
+                                 "argmax path (compute_dtype='float32')")
             mx, bary_sel = segment_max_with_bary_packed(x, dist.row_bary, rid,
                                                         cap, rvalid)
         else:
@@ -115,9 +191,29 @@ class PointNetSeq(nn.Module):
                     (arg >= 0) & (arg <= count), arg, 0)]
             else:
                 bary_sel = torch.where(arg >= 0,
-                                       dist.row_bary[arg.clamp(min=0)],
-                                       torch.zeros((), device=arg.device))
+                                       dist.row_bary[arg.clamp(min=0)], zero)
         return self._zero_sparse(torch.cat([mx, bary_sel], dim=-1), nr_points)
+
+    def _attention_pool(self, x, rid, rvalid, cap: int):
+        """Attention-weighted sum of each vertex's rows (``attention_pool``).
+        The GN-ReLU-1x1s run over the point rows, their GroupNorm
+        statistics over the valid rows only; the scores are exponentiated,
+        zeroed on invalid rows and divided by their vertex's sum.  Row sums
+        go through :func:`lattice_ops.segment_sum` (valid rows never lie in
+        the invalid bucket 0).  The per-vertex values go back to the rows
+        through :func:`lattice_ops.gather_rows`, whose backward leaves out
+        the invalid rows' reads of row 0 (autograd's would add them one
+        after another: C-1's fault): row 0's maximum and sum take no
+        gradient anyway, the one being masked as empty, the other 0."""
+        mx, _ = segment_max_with_argmax(x, rid, cap, rvalid)
+        xm = x + self.gamma * lo.gather_rows(mx, rid)
+        pre = self.pre_conv(xm)
+        act = self.att_activ(pre, pre.shape[0], rvalid)
+        sc = self.att_scores(act, act.shape[0], rvalid)
+        sc = torch.exp(sc) * rvalid[:, None]
+        ssum = lo.segment_sum(sc, rid, cap)
+        sc = sc / torch.clamp(lo.gather_rows(ssum, rid), min=1e-12)
+        return lo.segment_sum(x * sc, rid, cap)
 
     def reduce_sorted(self, spn, values, row_bary, nr_points_all):
         """All-frames MLP + packed max over union-sorted rows.

@@ -2,7 +2,8 @@
 the streaming path's per-frame structures (distribute onto a vertex table,
 neighbor tables, coarse tables and links, each built in full or updated
 incrementally), the one-hop lattice convolution, the coarsen splat and
-finefy slice through a level link, and the deform-slice gather.
+finefy slice through a level link, the deform-slice gather, and the
+classic splat and slice of points onto their simplex vertices.
 
 Vertex-value arrays are capacity-padded (cap, C) and exactly zero outside
 the occupied rows [1, count) (:func:`mask_rows`); gathers through absent
@@ -133,16 +134,19 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def distribute(table: VertexTable, positions: torch.Tensor,
-               point_mask: torch.Tensor, sigma: float):
+               point_mask: torch.Tensor, sigma: float,
+               subtract_local_mean: bool = True):
     """Splat one frame's points onto the lattice, growing the (carried)
     vertex table append-only.
 
     Keys and weights come from kernel K1 (``fused_simplex_pack``; its plain
     version for CPU tensors), which computes the JAX package's ``elevate``
-    + ``find_enclosing_simplex`` + ``pack_keys`` bit for bit.  The local
-    mean is a float32 :func:`segment_sum` of (xyz * w, w) per vertex, and
-    every row's position is taken relative to its vertex's mean (the
-    no-local-mean experiments are not ported).
+    + ``find_enclosing_simplex`` + ``pack_keys`` bit for bit.  With
+    ``subtract_local_mean`` (the reference's default), the local mean is a
+    float32 :func:`segment_sum` of (xyz * w, w) per vertex, and every row's
+    position is taken relative to its vertex's mean; without it (the
+    no-local-mean experiments) a row keeps its raw position.  Invalid rows
+    read zero either way.
 
     Args:
       positions: (P, 3) float32, zero-padded; point_mask: (P,) bool.
@@ -158,10 +162,13 @@ def distribute(table: VertexTable, positions: torch.Tensor,
                            torch.zeros((), device=bary4.device))
     pos_rows = positions.to(torch.float32).repeat_interleave(4, dim=0)
     w = row_valid.to(torch.float32)
-    s = segment_sum(torch.cat([pos_rows * w[:, None], w[:, None]], dim=1),
-                    row_vertex, table.capacity)
-    mean = s[:, :3] / torch.clamp(s[:, 3:], min=1.0)
-    rel = (pos_rows - mean[row_vertex]) * w[:, None]
+    rel = pos_rows
+    if subtract_local_mean:
+        s = segment_sum(torch.cat([pos_rows * w[:, None], w[:, None]], dim=1),
+                        row_vertex, table.capacity)
+        mean = s[:, :3] / torch.clamp(s[:, 3:], min=1.0)
+        rel = pos_rows - mean[row_vertex]
+    rel = rel * w[:, None]
     return new_table, DistributeOut(
         row_vertex=row_vertex, row_bary=row_bary, row_rel_pos=rel,
         row_valid=row_valid, point_vertex=row_vertex.reshape(p, 4),
@@ -541,3 +548,28 @@ def slice_gather(values: torch.Tensor, point_vertex: torch.Tensor,
     """Per point, its simplex-vertex features weighted by ``point_bary``."""
     g = values[point_vertex]
     return torch.einsum("pvc,pv->pc", g, point_bary)
+
+
+def slice_classic(values: torch.Tensor, point_vertex: torch.Tensor,
+                  point_bary: torch.Tensor) -> torch.Tensor:
+    """The classic slice (the reference's ``SliceLatticeModule``, which only
+    commented-out code calls): plain barycentric interpolation of vertex
+    features at the points, no deform and no classifier."""
+    return slice_gather(values, point_vertex, point_bary)
+
+
+def splat_classic(point_values: torch.Tensor, point_vertex: torch.Tensor,
+                  point_bary: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The classic splat (the reference's ``SplatLatticeModule``, never
+    called in its forward), the adjoint of :func:`slice_classic`: each
+    point's features, weighted by its barycentric weights, added onto its
+    simplex vertices.
+
+    Args:
+      point_values: (P, C); point_vertex: (P, 4) int64 (0 = invalid);
+      point_bary: (P, 4) float32, 0 for invalid corners.
+    Returns (capacity, C); row 0, the invalid bucket, is 0 (the
+    ``mask_rows`` invariant)."""
+    contrib = point_values[:, None, :] * point_bary[..., None]
+    return segment_sum(contrib.reshape(-1, point_values.shape[-1]),
+                       point_vertex.reshape(-1), capacity)

@@ -1,7 +1,8 @@
-"""Segment maxima of the pointnet (port of the JAX package's
+"""Segment reductions of the pointnet (port of the JAX package's
 ``ops/segment.py``): the packed value + barycentric-weight max
 ``sorted_packed_max`` and ``segment_max_with_bary_packed``, each with its
-straight-through backward, and the float32 ``segment_max_with_argmax``.
+straight-through backward, the float32 ``segment_max_with_argmax``, and
+``segment_mean`` (the ``splat`` experiment's reduction).
 
 The bf16 value bits (monotone-mapped) go into the high 16 bits of a uint32
 and the quantised barycentric weight into the low 16, so one segmented
@@ -29,6 +30,7 @@ import os
 
 import torch
 
+from .lattice_ops import segment_sum
 from .seg_scan import INT_MIN, sorted_segment_max_u32, sorted_segment_max_window
 
 CHUNK = 16   # rows per chunk of the two-level tail max (window CHUNK // 2)
@@ -260,3 +262,22 @@ def segment_max_with_argmax(data, segment_ids, num_segments: int,
                      device=data.device).scatter_reduce(
         0, idx, torch.where(winner, rows, none), "amax")
     return mxz, torch.where(has, arg, none)
+
+
+def segment_mean(data, segment_ids, num_segments: int, valid=None):
+    """Per-segment mean of the (valid) rows of ``data``, 0 for an empty
+    segment (the JAX package's ``segment_mean``), on
+    :func:`lattice_ops.segment_sum`: the same bits on every call, and
+    segment 0, the invalid bucket, reads 0.  The JAX package's mean of
+    segment 0 differs only where a valid row has id 0, which no caller
+    passes (a row is valid only on a real vertex).
+
+    Args:
+      data: (R, C); segment_ids: (R,) int64 in [0, num_segments);
+      valid: optional (R,) bool.
+    Returns (num_segments, C) in data's dtype."""
+    w = (torch.ones(data.shape[0], dtype=data.dtype, device=data.device)
+         if valid is None else valid.to(data.dtype))
+    sums = segment_sum(data * w[:, None], segment_ids, num_segments)
+    cnts = segment_sum(w, segment_ids, num_segments)
+    return sums / torch.clamp(cnts, min=1.0)[:, None]

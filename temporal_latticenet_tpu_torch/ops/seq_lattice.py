@@ -381,6 +381,7 @@ def _build_level(packed_final, birth_final, counts, n_frames: int,
 
 def build_sequence_lattice(positions: torch.Tensor, mask: torch.Tensor,
                            sigma: float, capacities, nr_downsamples: int,
+                           subtract_local_mean: bool = True,
                            nbr_caps=None,
                            pn_values: torch.Tensor | None = None,
                            want_row_rel: bool = True) -> SeqLattice:
@@ -388,9 +389,13 @@ def build_sequence_lattice(positions: torch.Tensor, mask: torch.Tensor,
       positions: (T, P, 3) float32 padded frames.
       mask: (T, P) bool.
       capacities: per-level static table sizes.
+      subtract_local_mean: the reference's default; off under the
+        no-local-mean experiments, whose level 0 is the plain birth union
+        (:func:`_union_with_birth`, no K3): every row keeps its raw
+        position, and there are no ``nr_points`` and no ``sorted_pn``.
       nbr_caps: optional per-level neighbor-table row prefixes.
       pn_values: optional (T, P, v) float32 point values that ride the
-        union's sorts for the batched pointnet.
+        union's sorts for the batched pointnet (mean path only).
       want_row_rel: False when nothing reads ``row_rel_pos`` (it is then
         zeros).
     """
@@ -406,20 +411,30 @@ def build_sequence_lattice(positions: torch.Tensor, mask: torch.Tensor,
     bary = bary4.reshape(t_frames, p * dp1)
     pos_rows = positions.repeat_interleave(dp1, dim=1)           # (T, P*4, 3)
 
-    extra_rows, n_vals = None, 0
-    if pn_values is not None:
-        n_vals = pn_values.shape[-1]
-        vals_rows = pn_values.reshape(t_frames * p, n_vals) \
-            .repeat_interleave(dp1, dim=0)
-        extra_rows = _pack_pn_rows(vals_rows, bary.reshape(-1))
-    (packed0, birth0, row_idx, counts0, rel_flat, nr_points,
-     sorted_pn) = _union_with_birth_and_mean(
-        cand_packed, pos_rows.reshape(-1, 3), cap0, t_frames,
-        extra_rows=extra_rows, n_vals=n_vals,
-        skip_rel_unsort=not want_row_rel)
-    rel = rel_flat.reshape(t_frames, p * dp1, 3)
-    row_vertex = row_idx.reshape(t_frames, p * dp1)
-    row_valid = rvalid & (row_vertex > 0)
+    if subtract_local_mean:
+        extra_rows, n_vals = None, 0
+        if pn_values is not None:
+            n_vals = pn_values.shape[-1]
+            vals_rows = pn_values.reshape(t_frames * p, n_vals) \
+                .repeat_interleave(dp1, dim=0)
+            extra_rows = _pack_pn_rows(vals_rows, bary.reshape(-1))
+        (packed0, birth0, row_idx, counts0, rel_flat, nr_points,
+         sorted_pn) = _union_with_birth_and_mean(
+            cand_packed, pos_rows.reshape(-1, 3), cap0, t_frames,
+            extra_rows=extra_rows, n_vals=n_vals,
+            skip_rel_unsort=not want_row_rel)
+        rel = rel_flat.reshape(t_frames, p * dp1, 3)
+        row_vertex = row_idx.reshape(t_frames, p * dp1)
+        row_valid = rvalid & (row_vertex > 0)
+    else:
+        cand_order = torch.arange(cand_packed.shape[0],
+                                  device=cand_packed.device)
+        packed0, birth0, row_idx, counts0 = _union_with_birth(
+            cand_packed, cand_order, cap0, t_frames)
+        row_vertex = row_idx.reshape(t_frames, p * dp1)
+        row_valid = rvalid & (row_vertex > 0)
+        rel = pos_rows * row_valid[..., None].to(torch.float32)
+        nr_points = sorted_pn = None
     row_bary = torch.where(row_valid, bary, torch.zeros_like(bary))
 
     levels, links = [], []

@@ -17,7 +17,10 @@ port's names, :func:`validate_converted` checks every key and shape, and
 ``load_state_dict(strict=True)`` loads.  Any source key left unconsumed,
 and any missing, extra or transposed key, fails with a report for each.
 The JAX package's own flax ``.ckpt`` (msgpack) is not read: weights move
-from it as a ``.pt`` in that schema.
+from it as a ``.pt`` in that schema.  Every ``experiment``'s schema loads:
+no pointnet MLP for the no-elevate experiments and ``splat``, no deform
+weights for ``slice_no_deform``, and the attention pool's ``gamma``,
+``pre_conv``, ``att_activ`` and ``att_scores`` under the port's names.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from datetime import datetime
 from typing import Mapping
 
 import torch
+
+from ..models.pointnet import NO_ELEVATE
 
 
 def checkpoint_name(include_moving: bool, dataset_name: str, values_mode: str,
@@ -182,8 +187,17 @@ def convert_state_dict(sd: Mapping, cfg) -> tuple[dict, dict]:
             gn_relu_conv(_child(sd, src, cands, name), f"{dst}.{name}")
 
     pn = "point_net_seq"
-    for i in range(len(cfg.pointnet_layers)):
-        weight_bias(f"{pn}.layers.{i}", f"{pn}.layers.{i}")
+    if cfg.experiment not in NO_ELEVATE:
+        for i in range(len(cfg.pointnet_layers)):
+            weight_bias(f"{pn}.layers.{i}", f"{pn}.layers.{i}")
+    if cfg.experiment == "attention_pool":
+        # the attention pool's parameters under the port's names (the
+        # JAX package's export leaves them out, ROADMAP C-3); its two
+        # GN-ReLU-1x1s nest as a GN-ReLU-conv does
+        copy(f"{pn}.gamma", f"{pn}.gamma")
+        copy(f"{pn}.pre_conv.weight", f"{pn}.pre_conv.weight")
+        gn_relu_conv(f"{pn}.att_activ", f"{pn}.att_activ")
+        gn_relu_conv(f"{pn}.att_scores", f"{pn}.att_scores")
     weight_bias(f"{pn}.last_conv", f"{pn}.last_conv")
     if cfg.sequence_learning and cfg.rnn_modules[0] != "none":
         fusion(f"{pn}.fusion_module", cfg.rnn_modules[0])

@@ -5,7 +5,11 @@ JAX package's ``train/torch_convert.export_state_dict`` writes; this module
 carries its own copy of that mapping (flax kernels are (in, out) and
 transpose to torch's (out, in), lattice-conv kernels keep their (9*in, out)
 layout), so ``LNNSeq.load_state_dict(params_from_jax(...), strict=True)``
-loads weights trained with the JAX package.
+loads weights trained with the JAX package.  Every ``experiment`` maps:
+its pointnet may have no MLP layers (the no-elevate experiments and
+``splat``) or carry the attention pool's ``gamma``, ``pre_conv_kernel``,
+``att_activ`` and ``att_scores``, and the slice head of
+``slice_no_deform`` has no deform weights.
 """
 
 from __future__ import annotations
@@ -85,9 +89,17 @@ def params_from_jax(params_np: Mapping, cfg) -> dict:
     for name, sub in params_np.items():
         if name == "point_net_seq":
             for i in range(len(cfg.pointnet_layers)):
+                if f"layers_{i}_kernel" not in sub:
+                    continue
                 put(f"point_net_seq.layers.{i}.weight",
                     sub[f"layers_{i}_kernel"], transpose=True)
                 put(f"point_net_seq.layers.{i}.bias", sub[f"layers_{i}_bias"])
+            if "gamma" in sub:
+                put("point_net_seq.gamma", sub["gamma"])
+                put("point_net_seq.pre_conv.weight", sub["pre_conv_kernel"],
+                    transpose=True)
+                gn_relu_1x1("point_net_seq.att_activ", sub["att_activ"])
+                gn_relu_1x1("point_net_seq.att_scores", sub["att_scores"])
             put("point_net_seq.last_conv.weight", sub["last_conv"]["kernel"])
             if "fusion_module" in sub:
                 fusion("point_net_seq.fusion_module", sub["fusion_module"],
@@ -114,9 +126,10 @@ def params_from_jax(params_np: Mapping, cfg) -> dict:
         elif name.startswith("finefy_list_"):
             gn_relu_conv(f"finefy_list.{int(name.rsplit('_', 1)[1])}", sub)
         elif name == "slice_fast_cuda":
-            put("slice_fast_cuda.linear_deltaW.weight", sub["deform_kernel"],
-                transpose=True)
-            put("slice_fast_cuda.linear_deltaW.bias", sub["deform_bias"])
+            if "deform_kernel" in sub:
+                put("slice_fast_cuda.linear_deltaW.weight",
+                    sub["deform_kernel"], transpose=True)
+                put("slice_fast_cuda.linear_deltaW.bias", sub["deform_bias"])
             put("slice_fast_cuda.linear_clasify.weight",
                 sub["classify_kernel"], transpose=True)
             put("slice_fast_cuda.linear_clasify.bias", sub["classify_bias"])

@@ -4,17 +4,21 @@ of the JAX package's ``train/engine.py``: ``make_sequence_forward``,
 ``create_train_state`` and ``make_train_step``).
 
 The whole sequence's lattice is built in one birth-tagged pass
-(``ops/seq_lattice``); with ``RuntimeConfig.batched_pointnet`` in bf16 the
-pointnet MLP + max runs once for all frames over the union-sorted rows,
-otherwise (the non-batched route, and every float32 configuration) each
-frame runs it over its own rows of the lattice.  Frames 0..T-2 run the
+(``ops/seq_lattice``); with ``RuntimeConfig.batched_pointnet`` in bf16 and
+no experiment ablation the pointnet MLP + max runs once for all frames over
+the union-sorted rows, otherwise (the non-batched route, every float32
+configuration and every experiment) each frame runs it over its own rows
+of the lattice.  The no-local-mean experiments build the lattice and
+distribute without the local mean.  Frames 0..T-2 run the
 trimmed early-return network on row prefixes of the lattice (a Python loop
 in place of ``lax.scan``), and the final frame runs the full model on its
 own trimmed view.  The training
 step differentiates that forward end to end (backpropagation through time
 over the carried fusion states) under the loss of ``models/losses.py`` and
-takes one AdamW(amsgrad) step.  Batches of more than one sequence,
-dropout and the pointnet's experiment ablations are not ported.
+takes one AdamW(amsgrad) step; the slice head's dropout
+(``dropout_last_layer``) runs in the training step's final frame only, from
+a generator seeded by the step count.  Batches of more than one sequence
+are not ported.
 
 Streaming inference serves one scan at a time, as a deployed system does:
 the vertex tables and fusion states carry over between frames, and each
@@ -36,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ModelConfig, RuntimeConfig
 from ..device import resolve_device
 from ..models.lnn_seq import SITES, LNNSeq, init_state, site_level
+from ..models.pointnet import subtract_local_mean
 from ..models.losses import segmentation_loss
 from ..ops import lattice_ops as lo
 from ..ops import seq_lattice as sl
@@ -52,17 +57,23 @@ def _resize_rows(a: torch.Tensor, c: int) -> torch.Tensor:
     return torch.nn.functional.pad(a, (0, 0, 0, c - a.shape[0]))
 
 
-def _check_ported(cfg: ModelConfig):
-    """Every model configuration runs, except the experiment ablations."""
-    if cfg.experiment != "none":
-        raise NotImplementedError(
-            f"experiment {cfg.experiment!r} is not ported to PyTorch yet")
+DROPOUT_SEED = 0x5EED   # the dropout generator's seed, beside the step
 
 
 def batched_pointnet(cfg: ModelConfig, rt: RuntimeConfig) -> bool:
     """Whether the offline forward runs the pointnet for all frames at once
-    over the union-sorted rows (bf16 only, as in the JAX package)."""
-    return rt.batched_pointnet and cfg.compute_dtype == "bfloat16"
+    over the union-sorted rows (bf16 without an experiment ablation, as in
+    the JAX package)."""
+    return (rt.batched_pointnet and cfg.compute_dtype == "bfloat16"
+            and cfg.experiment == "none")
+
+
+def dropout_generator(device, step: int) -> torch.Generator:
+    """The generator of one training step's dropout mask, on ``device``:
+    seeded by the step count, so that a resumed run draws the masks it
+    would have drawn."""
+    return torch.Generator(device=device).manual_seed(
+        (DROPOUT_SEED << 32) + int(step))
 
 
 def sequence_lattice(cfg: ModelConfig, rt: RuntimeConfig,
@@ -92,7 +103,8 @@ def sequence_lattice(cfg: ModelConfig, rt: RuntimeConfig,
         nbr_caps = final_caps
     batched = batched_pointnet(cfg, rt)
     seqlat = sl.build_sequence_lattice(
-        positions, mask, rt.sigma, caps, L, nbr_caps=nbr_caps,
+        positions, mask, rt.sigma, caps, L,
+        subtract_local_mean=subtract_local_mean(cfg), nbr_caps=nbr_caps,
         pn_values=values if batched and values.shape[-1] <= 3 else None,
         want_row_rel=not batched)
     return seqlat, trim_caps, final_caps
@@ -116,8 +128,12 @@ def _remat_frame(fn, remat: str):
 def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
                      remat: str = "none"):
     """Single-sequence forward with gradients: (positions (T,P,3), values
-    (T,P,V), mask (T,P)) -> (logp (P, classes), logits, aux) for the last
-    frame.
+    (T,P,V), mask (T,P), dropout_gen=None) -> (logp (P, classes), logits,
+    aux) for the last frame.  With a ``dropout_gen`` and
+    ``dropout_last_layer > 0``, the final frame's slice head drops features
+    by a mask drawn from it before the frame runs (so that a recomputed
+    frame drops the same ones); ``aux["dropped_share"]`` is the mask's
+    dropped share.
 
     ``remat`` sets what the backward recomputes instead of keeping:
       "none"      -- keep every activation;
@@ -129,7 +145,6 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     """
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
-    _check_ported(cfg)
     batched = batched_pointnet(cfg, rt)
     L = cfg.nr_downsamples
     dev = model.device
@@ -138,7 +153,7 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     def site_caps(which):
         return [which[site_level(cfg, s)] for s in SITES]
 
-    def seq_forward(positions, values, mask):
+    def seq_forward(positions, values, mask, dropout_gen=None):
         positions = torch.as_tensor(positions, device=dev)
         values = torch.as_tensor(values, device=dev)
         mask = torch.as_tensor(mask, device=dev)
@@ -195,9 +210,16 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
                              else None)
             else:
                 final_lat, red_final = seqlat, reduced_all[-1]
+            keep = None
+            if dropout_gen is not None and cfg.dropout_last_layer > 0:
+                keep = model.slice_fast_cuda.dropout_keep(positions.shape[1],
+                                                          dropout_gen)
             (logp, sv), state, aux = frame(state, final_lat,
                                            full_dist.frame(t - 1), red_final,
-                                           final=True, values=values[-1])
+                                           final=True, values=values[-1],
+                                           dropout_keep=keep)
+        if keep is not None:
+            aux["dropped_share"] = 1.0 - keep.float().mean()
         aux["trim_overflow"] = trim_overflow
         aux["vertex_overflow"] = aux["vertex_overflow"] | trim_overflow
         return logp, sv, aux
@@ -256,7 +278,6 @@ def make_streaming_inference(model: LNNSeq, cfg: ModelConfig,
     Frames are (P, 3), (P, V), (P,), numpy arrays or tensors; they move to
     the model's device.
     """
-    _check_ported(cfg)
     dev = model.device
 
     def new_state_fn():
@@ -297,10 +318,10 @@ def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
       step_*(pos, vals, mask, state, fs)    -> (state, fs)
       final_inc(pos, vals, mask, state, fs) -> (logp, logits, state, fs, aux)
     """
-    _check_ported(cfg)
     dev = model.device
     L = cfg.nr_downsamples
     caps = rt.capacities(L)
+    local_mean = subtract_local_mean(cfg)
 
     def new_fn():
         fs = lo.FrameStructures(
@@ -322,7 +343,8 @@ def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
         """Distribute the frame, then build (full) or patch (incremental)
         every level's structures."""
         old = [tb.count for tb in state.tables]
-        t0, dist = lo.distribute(state.tables[0], positions, mask, rt.sigma)
+        t0, dist = lo.distribute(state.tables[0], positions, mask, rt.sigma,
+                                 subtract_local_mean=local_mean)
         tabs = [t0]
         if not incremental:
             nbrs, links = [lo.build_neighbor_table(t0)], []
@@ -475,28 +497,32 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     Metrics (0-d tensors on the device): loss, lovasz, nll, grad_norm (the
     global norm of the gradients), nr_vertices and vertex_overflow; with
     ``watch_grads`` also grad_norms, {parameter name: its gradient's norm}
-    (what ``wandb.watch`` tracks in the reference).
+    (what ``wandb.watch`` tracks in the reference); with dropout
+    (``dropout_last_layer > 0``) also dropped_share, the share of the final
+    frame's slice features dropped.
     ``eval_step(batch) -> (logp, metrics)`` runs without gradients, and so
-    does ``train_step.loss_step(batch)``, the forward and loss alone;
-    ``train_step.grad_step(batch) -> (loss, {name: grad})`` returns
-    the gradients without an optimizer step.  The rematerialisation is
-    ``rt.remat_mode``.  Batches hold one sequence.
+    does ``train_step.loss_step(batch)``, the forward and loss alone; both
+    run without dropout.  ``train_step.grad_step(batch, step=0) -> (loss,
+    {name: grad})`` returns the gradients of the training step ``step``
+    (its dropout mask) without an optimizer step.  The rematerialisation
+    is ``rt.remat_mode``.  Batches hold one sequence.
     """
-    if cfg.dropout_last_layer > 0:
-        raise NotImplementedError(
-            "dropout in the deform-slice head is not ported to PyTorch yet")
     seq_fwd = sequence_forward(model, cfg, rt, remat=rt.remat_mode or "full")
     dev = model.device
     params = dict(model.named_parameters())
 
-    def loss_one(batch: SeqBatch):
+    def loss_one(batch: SeqBatch, step=None):
+        """The loss of one batch; ``step`` (a training step's count) turns
+        the slice head's dropout on."""
         b = batch.positions.shape[0]
         if b != 1:
             raise NotImplementedError(
                 f"batches of {b} sequences: only batches of one are ported "
                 f"to PyTorch yet")
+        gen = (dropout_generator(dev, step)
+               if step is not None and cfg.dropout_last_layer > 0 else None)
         logp, _, aux = seq_fwd(batch.positions[0], batch.values[0],
-                               batch.mask[0])
+                               batch.mask[0], gen)
         labels = torch.as_tensor(batch.labels[0][-1], device=dev)
         mask = torch.as_tensor(batch.mask[0][-1], device=dev)
         loss, parts = segmentation_loss(logp, labels, mask, ignore_index)
@@ -508,10 +534,10 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
                 "nr_vertices": aux["nr_vertices"],
                 "vertex_overflow": aux["vertex_overflow"]}
 
-    def gradients(batch: SeqBatch):
+    def gradients(batch: SeqBatch, step: int):
         for p in params.values():
             p.grad = None
-        loss, logp, parts, aux = loss_one(batch)
+        loss, logp, parts, aux = loss_one(batch, step)
         loss.backward()
         # parameters the loss does not reach get a zero gradient, so that
         # AdamW still decays them, as the optax chain does
@@ -521,11 +547,13 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
         return loss, logp, parts, aux
 
     def train_step(state: TrainState, batch: SeqBatch, lr_scale):
-        loss, logp, parts, aux = gradients(batch)
+        loss, logp, parts, aux = gradients(batch, state.step)
         gsq = torch.stack([(p.grad.float() ** 2).sum()
                            for p in params.values()])
         metrics = metrics_of(loss, parts, aux)
         metrics["grad_norm"] = torch.sqrt(gsq.sum())
+        if "dropped_share" in aux:
+            metrics["dropped_share"] = aux["dropped_share"]
         if watch_grads:
             metrics["grad_norms"] = dict(zip(params, torch.sqrt(gsq)))
         optim.set_lr_scale(state.optimizer, lr_scale)
@@ -538,8 +566,8 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
         loss, logp, parts, aux = loss_one(batch)
         return logp[None], metrics_of(loss, parts, aux)
 
-    def grad_step(batch: SeqBatch):
-        loss, _, _, _ = gradients(batch)
+    def grad_step(batch: SeqBatch, step: int = 0):
+        loss, _, _, _ = gradients(batch, step)
         return loss.detach(), {k: p.grad for k, p in params.items()}
 
     @torch.no_grad()

@@ -141,7 +141,11 @@ def _cosine(a, b):
     return float(a @ b / (na * nb))
 
 
-def _grad_step_matches(jparams, jcfg, jrt, cfg, rt, batch):
+def _grad_step_matches(jparams, jcfg, jrt, cfg, rt, batch, zero_grads=()):
+    """``grad_step`` of the port against the JAX package's.  ``zero_grads``
+    names parameters whose gradient is zero in exact arithmetic (both sides
+    hold rounding noise, whose cosine means nothing): each must be below
+    1e-6 of the largest gradient entry on both sides instead."""
     tx = joptim.make_optimizer(1e-3, 1e-3)
     step, _ = jengine.make_train_step(JLNNSeq(jcfg, jrt), jcfg, jrt, tx)
     jloss, jgrads = step.grad_step(
@@ -157,9 +161,13 @@ def _grad_step_matches(jparams, jcfg, jrt, cfg, rt, batch):
         engine.SeqBatch(*(a[None] for a in batch)))
     assert abs(float(loss) - float(jloss)) <= LOSS_ATOL
     assert sorted(grads) == sorted(want)
+    scale = max(float(np.abs(w.numpy()).max()) for w in want.values())
     for name, g in grads.items():
         g, w = g.numpy(), want[name].numpy()
         assert np.isfinite(g).all(), name
+        if name in zero_grads:
+            assert max(np.abs(g).max(), np.abs(w).max()) <= 1e-6 * scale, name
+            continue
         assert _cosine(g, w) >= GRAD_COSINE, (name, _cosine(g, w))
 
 

@@ -139,19 +139,28 @@ def test_default_device_is_cuda(monkeypatch):
 
 def test_unported_paths_raise():
     """What the port still leaves out raises: streams sharded over a device
-    mesh, and the pointnet's experiment ablations on every entry point.
-    The fusion kinds, the non-batched route and float32 streaming run."""
+    mesh.  Every experiment builds its model and both forwards; one that
+    changes the pointnet's reduced width behind an early GRU raises a
+    ValueError at construction (the JAX package cannot run it either).  The
+    fusion kinds, the non-batched route and float32 streaming run."""
     cfg, rt = ModelConfig(), RuntimeConfig(**RT)
     model = LNNSeq(cfg, rt, device="cpu")
     with pytest.raises(NotImplementedError):
         make_streaming_inference_batched(model, cfg, rt, mesh=object())
+    width_changing = ("pointnet_no_elevate",
+                      "pointnet_no_elevate_no_local_mean", "splat",
+                      "attention_pool")
     for exp in VALID_EXPERIMENTS:
-        if exp == "none":
-            continue
         xcfg = dataclasses.replace(cfg, experiment=exp)
+        if exp in width_changing:
+            with pytest.raises(ValueError, match="early"):
+                LNNSeq(xcfg, rt, device="cpu")
+            xcfg = dataclasses.replace(
+                xcfg, rnn_modules=("none",) + cfg.rnn_modules[1:])
+        xmodel = LNNSeq(xcfg, rt, device="cpu")
         for precompute in (True, False):
-            with pytest.raises(NotImplementedError):
-                make_sequence_forward(model, xcfg, rt, precompute=precompute)
+            assert callable(make_sequence_forward(xmodel, xcfg, rt,
+                                                  precompute=precompute))
     make_sequence_forward(model, cfg,
                           dataclasses.replace(rt, batched_pointnet=False))
     f32 = dataclasses.replace(cfg, compute_dtype="float32")

@@ -102,6 +102,35 @@ def test_run_training_and_eval(tiny_world):  # noqa: F811
         assert raw.shape == (40,) and raw.max() < 26
 
 
+def test_run_training_and_eval_with_an_experiment(tiny_world):  # noqa: F811
+    """A cfg with ``experiment: attention_pool`` and ``dropout_last_layer:
+    0.2`` (behind the early fusion "none", which the reduced width needs)
+    trains, saves, and evaluates from its epoch checkpoint."""
+    tmp_path, cfg_path = tiny_world
+    xcfg = _edit(tmp_path, cfg_path, "attention.cfg",
+                 ('experiment: "none"', 'experiment: "attention_pool"'),
+                 ("dropout_last_layer: 0.0", "dropout_last_layer: 0.2"),
+                 ('rnn_modules: ["gru", "none", "none", "gru"]',
+                  'rnn_modules: ["none", "gru", "none", "gru"]'))
+    model, state = tloop.run_training(xcfg, max_steps=4,
+                                      datasets=_datasets(xcfg), device="cpu")
+    assert state.step == 3
+    assert model.cfg.experiment == "attention_pool"
+    assert model.cfg.dropout_last_layer == 0.2
+    assert "point_net_seq.gamma" in model.state_dict()
+    epoch0 = [c for c in os.listdir(tmp_path / "ckpts")
+              if c.endswith("_epoch0.ckpt")]
+    assert len(epoch0) == 1
+    ecfg = _edit(tmp_path, xcfg, "attention_eval.cfg",
+                 ('load_checkpoint_model: ""\n    do_write_predictions',
+                  f'load_checkpoint_model: "{epoch0[0]}"\n'
+                  "    do_write_predictions"))
+    miou, phase = tloop.run_eval(ecfg, split="valid", max_seqs=2,
+                                 datasets=_datasets(ecfg, ("valid",)),
+                                 device="cpu")
+    assert 0.0 <= miou <= 1.0 and phase.iter_nr == 2
+
+
 def test_resume_from_epoch_checkpoint(tiny_world):  # noqa: F811
     """train.start_epoch with load_checkpoint resumes a run: the epoch
     numbering (file names, schedule) continues, the step count carries

@@ -179,11 +179,21 @@ def test_train_step_metrics_and_update(jparams, batch):
 
 
 def test_unported_training_options_raise(jparams, batch):
+    """Batches of two sequences and unknown remat modes raise.  Dropout in
+    the slice head runs: the training step takes it, and ``eval_step``
+    stays deterministic."""
     cfg, rt = ModelConfig(), RuntimeConfig(**RT)
-    model, _ = engine.create_train_state(cfg, rt, 1e-3, 1e-3, device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.make_train_step(
-            model, dataclasses.replace(cfg, dropout_last_layer=0.2), rt)
+    dcfg = dataclasses.replace(cfg, dropout_last_layer=0.2)
+    model, state = engine.create_train_state(dcfg, rt, 1e-3, 1e-3,
+                                             device="cpu")
+    model.load_state_dict(params_from_jax(jparams, dcfg), strict=True)
+    d_train, d_eval = engine.make_train_step(model, dcfg, rt)
+    small = engine.SeqBatch(*(a[:, :2] for a in batch))
+    state, _, m = d_train(state, small, 1.0)
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
+    assert 0.15 < float(m["dropped_share"]) < 0.25
+    (a, ma), (b, mb) = d_eval(small), d_eval(small)
+    assert torch.equal(a, b) and float(ma["loss"]) == float(mb["loss"])
     _, _, train_step, eval_step = _port(jparams)
     two = engine.SeqBatch(*(np.concatenate([a, a]) for a in batch))
     with pytest.raises(NotImplementedError):
