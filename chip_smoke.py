@@ -128,7 +128,31 @@ Phases, in order; any failure exits non-zero without the final line:
     steps of ``attention_pool`` and of the flagship with
     ``dropout_last_layer`` 0.2, finite losses, every step's dropped share
     within ``DROPPED_ATOL`` of the rate;
-17. one JSON line with the kernels, the device line, and the result line
+17. data parallelism on the one card: ``DP_RANKS`` ranks spawned as child
+    processes (start method spawn) share ``cuda:0`` over ``gloo`` (NCCL
+    refuses two ranks on one card), each with one sequence of phase 4's
+    geometry (seeds 0 and 1, flagship, default K4 route, full remat): a
+    ``grad_step`` and one warm and ``DP_TIMED_STEPS`` timed training
+    steps, against this process's B = 2 step on the same two sequences:
+    losses within 1e-6 relative, every reduced gradient within 1e-6 of its
+    parameter's largest magnitude, the weights after the steps equal
+    across the ranks and within 5e-5 of the one process's.  It reports
+    seconds per step (ranks, B = 2, phase 8's B = 1), each rank's peak
+    memory, the gradient all-reduce's milliseconds and the K1-K4 launches
+    of one rank-step; then ``DP_STREAMS`` streams of phase 10's geometry
+    over the ranks (plain and incremental), each gathered final frame
+    against the one process's batched streams within phase 10's
+    tolerance, with the milliseconds per frame.  Ranks that share a card
+    measure correctness, not scaling.  A rank that fails or hangs
+    terminates both and fails the phase (``DP_TIMEOUT``);
+18. the utilities: ``autotune_capacities`` over two sequences of phase
+    4's data (its level counts equal the flagship build's; K1-K3
+    launched), ``profiling.trace`` around one flagship forward (the trace holds the
+    "distribute" and "pointnet" spans and K1-K4), and ``visualize_cli`` on
+    one sequence of the reduced geometry from the shipped eval cfg
+    without ``--render`` (one ``.npz`` per frame after the first, weights
+    finite, neighbors inside the capacity), each with its seconds;
+19. one JSON line with the kernels, the device line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Phase 8 also reports the deform slice's gather backward
@@ -180,6 +204,8 @@ LOGP_ATOL = 0.1
 ARGMAX_AGREE = 0.99
 TRAIN_STEPS = 6        # timed training steps after the warm one
 PROFILE_STEPS = 2      # training steps under torch.profiler
+PROFILE_TRIES = 5      # tries of a profiler window that lost device events
+PROFILE_RETRY_S = 0.5  # pause before the second try, doubled for each next
 # training step held against itself on the CPU: the tolerance of the CPU
 # test against the JAX package (tests/test_torch_train.py), for the same
 # reason as LOGP_ATOL, with operand gradients rounded to bf16 as well
@@ -254,6 +280,21 @@ DROPOUT = 0.2
 # of the rate at 5 standard deviations; a mask of another rate misses this
 DROPPED_ATOL = 0.02
 
+
+# phase 17: data parallelism on the one card (ranks that share it, gloo)
+DP_RANKS = 2
+DP_TIMED_STEPS = 3     # timed steps after the warm one
+DP_STREAMS = 4         # streams over the ranks, DP_STREAMS / DP_RANKS each
+DP_LOSS_RTOL = 1e-6
+DP_GRAD_REL = 1e-6     # of each parameter's largest gradient magnitude
+DP_WEIGHT_ATOL = 5e-5  # the JAX package's own bound (tests/test_train.py)
+DP_TIMEOUT = 600.0     # seconds for both ranks, start-up included
+DP_DIR = os.path.join(ROOT, "build", "dp_smoke")
+# phase 18: the utilities
+UTIL_DIR = os.path.join(ROOT, "build", "utils_smoke")
+AUTOTUNE_KERNELS = ("fused_simplex_pack", "sorted_segment_scan",
+                    "seg_sum_tails")
+
 KERNELS = {
     "fused_simplex_pack": dict(
         source="temporal_latticenet_tpu_torch/csrc/fused_simplex.cu",
@@ -323,23 +364,65 @@ def wall_ms(fn, iters: int, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_side(prof):
+    """The device-side events of a finished profile (kernels, copies,
+    fills), without the ``ProfilerStep`` span of its schedule."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
+
+
+def lost_launches(events, launched: dict) -> dict:
+    """{kernel: (seen, launched)} for each of K1-K5 whose kernels in
+    ``events`` number fewer than its ``launched`` count."""
+    seen = {}
+    for e in events:
+        k = hand_written(e.name)
+        seen[k] = seen.get(k, 0) + 1
+    return {k: (seen.get(k, 0), n) for k, n in launched.items()
+            if seen.get(k, 0) < n}
+
+
+# windows that lost device events and were taken again: (seen, launched)
+PROFILER_RETRIES: list = []
+
+
+def profile_retry_pause(tries: int) -> None:
+    """Sleep before the next try of a profiler window that lost events: a
+    spell of losses may outlast one window, and tries taken back to back
+    would all fall into it."""
+    time.sleep(PROFILE_RETRY_S * 2 ** (tries - 1))
+
+
 def device_events(fn, calls: int):
     """The device-side events (kernels, copies, fills) of ``calls`` calls of
-    ``fn`` under ``torch.profiler``, and the wall microseconds of the
-    window."""
-    from torch.profiler import ProfilerActivity, profile
+    ``fn`` under ``profiling.window``, and the wall microseconds of the
+    window.  Now and then a session records no device events, or fewer
+    kernels of K1-K5 than were launched in it: such a window is taken
+    again, after a growing pause, up to ``PROFILE_TRIES`` times in all, and
+    then fails."""
+    from temporal_latticenet_tpu_torch.ops import _cuda
+    from temporal_latticenet_tpu_torch.utils import profiling
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return events, wall_us
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = _cuda.launch_counts()
+        with profiling.window() as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launched = {k: n - before[k]
+                    for k, n in _cuda.launch_counts().items()}
+        events = device_side(prof)
+        lost = lost_launches(events, launched)
+        if events and not lost:
+            return events, wall_us
+        PROFILER_RETRIES.append(lost or "no device events")
+        if tries < PROFILE_TRIES:
+            profile_retry_pause(tries)
+    raise RuntimeError(f"torch.profiler lost device events in "
+                       f"{PROFILE_TRIES} windows: {PROFILER_RETRIES[-1]}")
 
 
 def device_ms(fn, iters: int):
@@ -348,13 +431,7 @@ def device_ms(fn, iters: int):
     operations (kernels, copies, memsets) of one call; the events."""
     fn()
     torch.cuda.synchronize()
-    # a profiling session now and then records no device events at all
-    for _ in range(3):
-        events, _ = device_events(fn, iters)
-        if events:
-            break
-    else:
-        raise RuntimeError("torch.profiler recorded no device work")
+    events, _ = device_events(fn, iters)
     return (sum(e.time_range.elapsed_us() for e in events) / iters / 1e3,
             len(events) / iters, events)
 
@@ -992,8 +1069,9 @@ def packed_forward(dev, data, model, fwd, rt):
 # phases 8 and 9: the training step
 # ---------------------------------------------------------------------------
 
-def make_trainer(rt_kw, device, state_dict=None, cfg=None):
+def make_trainer(rt_kw, device, state_dict=None, cfg=None, mesh=None):
     from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.parallel import mesh as pmesh
     from temporal_latticenet_tpu_torch.train import engine
 
     cfg = cfg or ModelConfig()
@@ -1002,7 +1080,9 @@ def make_trainer(rt_kw, device, state_dict=None, cfg=None):
                                              device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
-    train_step, _ = engine.make_train_step(model, cfg, rt)
+    if mesh is not None:
+        pmesh.replicate(mesh, model)
+    train_step, _ = engine.make_train_step(model, cfg, rt, mesh=mesh)
     return model, state, train_step
 
 
@@ -1691,9 +1771,11 @@ class LoopProbe:
 
     def __init__(self, loop_mod):
         from temporal_latticenet_tpu_torch.ops import _cuda
+        from temporal_latticenet_tpu_torch.utils import profiling
         self.loop_mod, self.base = loop_mod, loop_mod.StateCallback
         self.seqs, self.miou, self.events, self.syncs = [], {}, None, None
         self.prof, self.t_prof = None, 0.0
+        self.window = contextlib.ExitStack()
         probe, stack = self, contextlib.ExitStack()
 
         class Probe(self.base):
@@ -1704,21 +1786,17 @@ class LoopProbe:
                 # the windows close at this callback's entry and open at
                 # its exit: they hold the loop's work and none of the probe's
                 if train and i == LOOP_PROFILE_STEP:
-                    probe.prof.stop()
+                    probe.window.close()
                     wall = (t - probe.t_prof) * 1e6
-                    probe.events = ([e for e in probe.prof.events()
-                                     if e.device_type
-                                     == torch.autograd.DeviceType.CUDA], wall)
+                    probe.events = (device_side(probe.prof), wall)
                 if train and i == LOOP_SYNC_STEP:
                     stack.close()
                 probe.seqs.append((phase.name, t, float(kw["loss"]),
                                    _cuda.launch_counts()))
                 super().after_forward_pass(phase=phase, **kw)
                 if train and i == LOOP_PROFILE_STEP - 1:
-                    probe.prof = torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA])
-                    probe.prof.start()
+                    probe.prof = probe.window.enter_context(
+                        profiling.window())
                     probe.t_prof = time.perf_counter()
                 if train and i == LOOP_SYNC_STEP - 1:
                     probe.syncs = stack.enter_context(counting_host_syncs())
@@ -1734,6 +1812,7 @@ class LoopProbe:
         return self
 
     def __exit__(self, *exc):
+        self.window.close()
         self.stack.close()
         self.loop_mod.StateCallback = self.base
 
@@ -1818,6 +1897,9 @@ def loop_flagship(dev):
         step_s = probe.seconds("train", LOOP_TIMED)
         events, wall_us = probe.events
         prof = device_summary(events, wall_us, 1, "step")
+        # one loop step cannot be profiled again: its losses are reported
+        prof["profiler_lost"] = lost_launches(
+            events, probe.launches("train", LOOP_PROFILE_STEP))
         syncs = probe.syncs
 
         # the checkpoint round trip: the epoch file reloaded into a fresh
@@ -2065,6 +2147,375 @@ def ablations(dev, data):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 17: data parallelism on the one card
+# ---------------------------------------------------------------------------
+
+def dp_batch():
+    """The global batch: DP_RANKS sequences of phase 4's geometry, seeds 0,
+    1, ...; numpy (B, T, P, ...)."""
+    seqs = [lidar_labelled(FLAGSHIP_RT["max_points"], seed=s)
+            for s in range(DP_RANKS)]
+    return tuple(np.stack(a) for a in zip(*seqs))
+
+
+def dp_stream_frames():
+    """DP_STREAMS sequences of phase 10's geometry (seeds 0, 1, ...) as
+    streams: numpy (T, B, P, ...)."""
+    seqs = [lidar(STREAM_RT["max_points"], seed=s) for s in range(DP_STREAMS)]
+    return tuple(np.ascontiguousarray(np.stack(a, axis=1))
+                 for a in zip(*seqs))
+
+
+def dp_steps(model, state, train_step, batch):
+    """``grad_step`` on the initial weights, then one warm training step
+    (its launches) and ``DP_TIMED_STEPS`` timed ones: the gradients, the
+    losses, the seconds per step, the peak memory and the final weights."""
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    loss0, grads = train_step.grad_step(batch)
+    grads = {k: g.detach().cpu() for k, g in grads.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    state, _, m = train_step(state, batch, 1.0)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts()
+    losses, secs = [float(m["loss"])], []
+    for _ in range(DP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, m = train_step(state, batch, 1.0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    return dict(loss=float(loss0), grads=grads, launches=launches,
+                losses=losses, seconds=secs,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                weights={k: p.detach().cpu()
+                         for k, p in model.named_parameters()})
+
+
+def dp_streams(dev, mesh, frames, incremental: bool):
+    """The batched streams of ``frames`` (split over ``mesh`` when given)
+    on seed-0 flagship weights: the final frame's log-probabilities of
+    every stream and the milliseconds of each frame (all streams)."""
+    from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
+    from temporal_latticenet_tpu_torch.train import engine
+
+    cfg, rt = ModelConfig(), RuntimeConfig(**STREAM_RT)
+    model = LNNSeq(cfg, rt, device=dev, seed=0).eval()
+    fns = engine.make_streaming_inference_batched(
+        model, cfg, rt, mesh=mesh, incremental=incremental, max_new=MAX_NEW)
+    pos, val, mask = frames
+    carry = fns[0](pos.shape[1])
+    ms = []
+    for t in range(len(pos)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if t == len(pos) - 1:
+            logp = fns[-1](pos[t], val[t], mask[t], carry)[0]
+        else:
+            fn = fns[1] if t == 0 or not incremental else fns[2]
+            carry = fn(pos[t], val[t], mask[t], carry)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return logp, ms
+
+
+def _grad_rel_diff(got: dict, want: dict) -> float:
+    return max(float((got[k] - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-12) for k in want)
+
+
+def _weights_digest(weights: dict) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    for k in sorted(weights):
+        h.update(weights[k].numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(rank: int, world: int, store: str, batch, frames,
+            ref_path: str) -> dict:
+    """One rank of phase 17 (a child process on the shared card, gloo):
+    its sequence's training steps with the all-reduce timed, compared
+    with the single process's run in ``ref_path``, then its streams."""
+    from temporal_latticenet_tpu_torch.parallel import mesh as pmesh
+    from temporal_latticenet_tpu_torch.train.engine import SeqBatch
+
+    mesh = pmesh.make_mesh(world_size=world, rank=rank, backend="gloo",
+                           device="cuda", init_method=f"file://{store}")
+    try:
+        model, state, train_step = make_trainer(FLAGSHIP_RT, mesh.device,
+                                                mesh=mesh)
+        params = list(model.parameters())
+        reduce_ms = []
+        all_reduce_mean = pmesh.all_reduce_mean
+
+        def timed_all_reduce(m, tensors):
+            tensors = list(tensors)
+            # the step's gradient reduction: the parameters' own .grad
+            grads = len(tensors) == len(params) and all(
+                t is p.grad for t, p in zip(tensors, params))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_mean(m, tensors)
+            torch.cuda.synchronize()
+            if grads:
+                reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+        pmesh.all_reduce_mean = timed_all_reduce
+        try:
+            run = dp_steps(model, state, train_step,
+                           pmesh.shard_batch(mesh, SeqBatch(*batch)))
+        finally:
+            pmesh.all_reduce_mean = all_reduce_mean
+        # one each in grad_step, the warm step and the timed steps
+        if len(reduce_ms) != DP_TIMED_STEPS + 2:
+            raise AssertionError(
+                f"{len(reduce_ms)} gradient all-reduces timed, not "
+                f"{DP_TIMED_STEPS + 2}")
+        del model, state, train_step
+        ref = torch.load(ref_path, weights_only=True)
+        out = dict(
+            rank=rank, losses=run["losses"], seconds=run["seconds"],
+            launches=run["launches"], peak_mem_gb=run["peak_mem_gb"],
+            all_reduce_ms=reduce_ms,
+            loss_rel_diff=abs(run["loss"] - float(ref["loss"]))
+            / abs(float(ref["loss"])),
+            grad_rel_diff=_grad_rel_diff(run["grads"], ref["grads"]),
+            weight_max_abs_diff=max(
+                float((run["weights"][k] - v).abs().max())
+                for k, v in ref["weights"].items()),
+            weights_digest=_weights_digest(run["weights"]))
+        torch.cuda.empty_cache()
+        for name, inc in (("plain", False), ("incremental", True)):
+            logp, ms = dp_streams(mesh.device, mesh, frames, inc)
+            want = ref[f"streams_{name}"].to(logp.device)
+            per = [logp_stats(logp[b], want[b], frames[2][-1, b])
+                   for b in range(logp.shape[0])]
+            out[f"streams_{name}"] = dict(
+                ms_per_frame=ms, bit_equal=bool(torch.equal(logp, want)),
+                logp_max_abs_diff=max(st["logp_max_abs_diff"] for st in per),
+                argmax_agreement=min(st["argmax_agreement"] for st in per),
+                agrees=all(agrees(st) for st in per))
+        return out
+    finally:
+        pmesh.close(mesh)
+
+
+def data_parallel(dev, train_b1):
+    """Phase 17: ``DP_RANKS`` ranks on the one card against one process
+    with the whole batch, for the training step and the streams."""
+    from temporal_latticenet_tpu_torch.parallel import mesh as pmesh
+    from temporal_latticenet_tpu_torch.train.engine import SeqBatch
+
+    import shutil
+    batch, frames = dp_batch(), dp_stream_frames()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    try:
+        model, state, train_step = make_trainer(FLAGSHIP_RT, dev)
+        one = dp_steps(model, state, train_step,
+                       SeqBatch(*(torch.as_tensor(a, device=dev)
+                                  for a in batch)))
+        del model, state, train_step
+        ref = dict(loss=torch.tensor(one["loss"]), grads=one["grads"],
+                   weights=one["weights"])
+        one_ms = {}
+        for name, inc in (("plain", False), ("incremental", True)):
+            logp, one_ms[name] = dp_streams(dev, None, frames, inc)
+            ref[f"streams_{name}"] = logp.cpu()
+            del logp
+        ref_path = os.path.join(DP_DIR, "reference.pt")
+        torch.save(ref, ref_path)
+        del ref
+        torch.cuda.empty_cache()
+        ranks = pmesh.spawn(dp_rank, DP_RANKS,
+                            (os.path.join(DP_DIR, "store"), batch, frames,
+                             ref_path), timeout=DP_TIMEOUT)
+    finally:
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+
+    faults = []
+    for r in ranks:
+        if r["loss_rel_diff"] > DP_LOSS_RTOL:
+            faults.append(f"rank {r['rank']} loss {r['loss_rel_diff']}")
+        if r["grad_rel_diff"] > DP_GRAD_REL:
+            faults.append(f"rank {r['rank']} gradients {r['grad_rel_diff']}")
+        if r["weight_max_abs_diff"] > DP_WEIGHT_ATOL:
+            faults.append(f"rank {r['rank']} weights "
+                          f"{r['weight_max_abs_diff']}")
+        missing = [k for k in FORWARD_KERNELS if r["launches"][k] == 0]
+        if missing:
+            faults.append(f"rank {r['rank']} launched no {missing}")
+        for name in ("plain", "incremental"):
+            if not r[f"streams_{name}"]["agrees"]:
+                faults.append(f"rank {r['rank']} streams {name}: "
+                              f"{r[f'streams_{name}']}")
+    if len({r["weights_digest"] for r in ranks}) != 1:
+        faults.append("the ranks' weights differ")
+    if not all(math.isfinite(x) for r in ranks for x in r["losses"]):
+        faults.append("non-finite losses")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    rank_secs = [statistics.median(r["seconds"]) for r in ranks]
+    return dict(
+        note=(f"{DP_RANKS} ranks share one card over gloo: this checks "
+              f"correctness, not scaling"),
+        ranks=DP_RANKS, sequences_per_rank=1,
+        seconds_per_step_ranks=rank_secs,
+        seconds_all_ranks=[r["seconds"] for r in ranks],
+        quartiles_ranks=[quartiles(r["seconds"]) for r in ranks],
+        seconds_per_step_b2=statistics.median(one["seconds"]),
+        quartiles_b2=quartiles(one["seconds"]), seconds_all_b2=one["seconds"],
+        seconds_per_step_b1_phase8=train_b1,
+        peak_mem_gb_ranks=[r["peak_mem_gb"] for r in ranks],
+        peak_mem_gb_b2=one["peak_mem_gb"],
+        all_reduce_ms_per_step=[statistics.median(r["all_reduce_ms"])
+                                for r in ranks],
+        all_reduce_ms_all=[r["all_reduce_ms"] for r in ranks],
+        launches_rank_step=ranks[0]["launches"],
+        launches_b2_step=one["launches"],
+        losses_ranks=[r["losses"] for r in ranks], losses_b2=one["losses"],
+        loss_rel_diff=max(r["loss_rel_diff"] for r in ranks),
+        grad_rel_diff=max(r["grad_rel_diff"] for r in ranks),
+        weight_max_abs_diff=max(r["weight_max_abs_diff"] for r in ranks),
+        streams={name: dict(
+            streams=DP_STREAMS,
+            ms_per_frame_ranks=[statistics.median(r[f"streams_{name}"][
+                "ms_per_frame"]) for r in ranks],
+            ms_per_frame_one_process=statistics.median(one_ms[name]),
+            ms_all_ranks=[r[f"streams_{name}"]["ms_per_frame"]
+                          for r in ranks],
+            ms_all_one_process=one_ms[name],
+            bit_equal=all(r[f"streams_{name}"]["bit_equal"] for r in ranks),
+            logp_max_abs_diff=max(r[f"streams_{name}"]["logp_max_abs_diff"]
+                                  for r in ranks))
+            for name in ("plain", "incremental")},
+        tolerance=dict(loss_rtol=DP_LOSS_RTOL, grad_rel=DP_GRAD_REL,
+                       weight_atol=DP_WEIGHT_ATOL, logp_atol=LOGP_ATOL,
+                       argmax_agree=ARGMAX_AGREE))
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the utilities on the card
+# ---------------------------------------------------------------------------
+
+def utilities(dev):
+    """Phase 18: capacity autotuning, a ``profiling.trace`` of one flagship
+    forward, and ``visualize_cli`` on one sequence."""
+    import shutil
+    import types
+
+    from temporal_latticenet_tpu_torch import visualize_cli
+    from temporal_latticenet_tpu_torch.config import (ModelConfig,
+                                                      RuntimeConfig,
+                                                      cfgParser,
+                                                      runtime_config_from_cfg)
+    from temporal_latticenet_tpu_torch.ops import _cuda
+    from temporal_latticenet_tpu_torch.train.engine import sequence_lattice
+    from temporal_latticenet_tpu_torch.utils import profiling
+    from temporal_latticenet_tpu_torch.utils.autotune import \
+        autotune_capacities
+
+    out = {}
+    shutil.rmtree(UTIL_DIR, ignore_errors=True)
+    try:
+        # autotune over two sequences of phase 4's data; with a headroom of
+        # 256 each capacity is 256 times the level's largest count
+        rt = RuntimeConfig(**FLAGSHIP_RT)
+        seqs = [lidar(FLAGSHIP_RT["max_points"], seed=s) for s in (0, 1)]
+        pairs = [(pos, mask) for pos, _, mask in seqs]
+        t0 = time.perf_counter()
+        _cuda.reset_launch_counts()
+        caps = autotune_capacities(pairs, 2, rt.sigma, device=dev)
+        out["autotune_seconds"] = time.perf_counter() - t0
+        out["autotune_launches"] = _cuda.launch_counts()
+        exact = autotune_capacities(pairs, 2, rt.sigma, headroom=256.0,
+                                    device=dev)
+        counts = []
+        for pos, val, mask in seqs:
+            lat, _, _ = sequence_lattice(
+                ModelConfig(), rt, *(torch.as_tensor(a, device=dev)
+                                     for a in (pos, val, mask)))
+            counts.append([int(lvl.counts[-1]) for lvl in lat.levels])
+        worst = [max(c) for c in zip(*counts)]
+        if [c // 256 for c in exact] != worst:
+            raise AssertionError(f"autotune counts {[c // 256 for c in exact]}"
+                                 f" vs the flagship build's {worst}")
+        missing = [k for k in AUTOTUNE_KERNELS
+                   if out["autotune_launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"autotune launched no {missing}")
+        out.update(autotune_capacities=list(caps), flagship_counts=counts)
+
+        # one flagship forward under profiling.trace
+        model, fwd, _ = make_forward(FLAGSHIP_RT, dev)
+        fwd(*seqs[0])
+        path = os.path.join(UTIL_DIR, "trace", profiling.TRACE_FILE)
+        out["trace_lacking"] = []
+        for tries in range(1, PROFILE_TRIES + 1):
+            t0 = time.perf_counter()
+            with profiling.trace(os.path.dirname(path)):
+                fwd(*seqs[0])
+            out["trace_seconds"] = time.perf_counter() - t0
+            with open(path) as fh:
+                names = {e.get("name", "")
+                         for e in json.load(fh)["traceEvents"]}
+            kernels = {hand_written(n) for n in names} - {None}
+            lacking = ({"distribute", "pointnet"} - names) \
+                | (set(FORWARD_KERNELS) - kernels)
+            if not lacking:
+                break
+            # the profiler now and then loses device events (device_events)
+            out["trace_lacking"].append(sorted(lacking))
+            if tries < PROFILE_TRIES:
+                profile_retry_pause(tries)
+        else:
+            raise AssertionError(f"{PROFILE_TRIES} traces lack "
+                                 f"{out['trace_lacking']}")
+        del model, fwd
+        out["trace_bytes"] = os.path.getsize(path)
+        out["trace_kernels"] = sorted(kernels)
+
+        # visualize_cli on one sequence of the reduced geometry, shipped
+        # eval cfg (the flagship, AFlow at the bottleneck), no --render
+        pos, val, mask = lidar(SMALL_RT["max_points"])
+        frames = [types.SimpleNamespace(positions=pos[t], values=val[t],
+                                        mask=mask[t])
+                  for t in range(len(pos))]
+        vis_dir = os.path.join(UTIL_DIR, "vis")
+        cfg_path = os.path.join(ROOT, "seq_config",
+                                "lnn_eval_semantic_kitti.cfg")
+        t0 = time.perf_counter()
+        visualize_cli.run(cfg_path, None, vis_dir,
+                          datasets={"valid": [frames]}, device=dev)
+        out["visualize_seconds"] = time.perf_counter() - t0
+        written = sorted(os.listdir(vis_dir))
+        want = [f"aflow_frame{t}.npz" for t in range(1, len(pos))]
+        if written != want:
+            raise AssertionError(f"visualize_cli wrote {written}")
+        cap = runtime_config_from_cfg(cfgParser(cfg_path)).capacities(2)[2]
+        for name in written:
+            data = np.load(os.path.join(vis_dir, name))
+            w = [data[k] for k in data.files if k.endswith("aflow_weights")]
+            n = [data[k] for k in data.files
+                 if k.endswith("aflow_neighbors")]
+            if len(w) != 1 or len(n) != 1:
+                raise AssertionError(f"{name} holds {data.files}")
+            if not np.isfinite(w[0]).all() or not (w[0] > 0).any():
+                raise AssertionError(f"{name}: weights not finite or all 0")
+            if n[0].min() < 0 or n[0].max() >= cap:
+                raise AssertionError(f"{name}: neighbors outside [0, {cap})")
+        out["visualize_files"] = written
+    finally:
+        shutil.rmtree(UTIL_DIR, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2092,6 +2543,8 @@ def main(argv=None) -> int:
             failed.append(name)
             report[name] = {"error": f"{type(e).__name__}: {e}"}
             log(f"[{name}] FAILED: {type(e).__name__}: {e}")
+            # the reason also reaches the end of the standard error
+            traceback.print_exc(file=sys.stderr)
             return None
 
     dline = phase("device", device_line)
@@ -2239,6 +2692,41 @@ def main(argv=None) -> int:
                     f"{r['losses']}; launches {r['launches']}; dropped "
                     f"{r.get('dropped_share')}")
 
+        torch.cuda.empty_cache()
+        dp = phase("data_parallel", lambda: data_parallel(
+            dev, (train or {}).get("seconds_per_step")))
+        if dp:
+            log(f"[data_parallel] {dp['note']}; s/step ranks "
+                f"{dp['seconds_per_step_ranks']} (quartiles "
+                f"{dp['quartiles_ranks']}), B = 2 one process "
+                f"{dp['seconds_per_step_b2']:.4f} (quartiles "
+                f"{dp['quartiles_b2']}), B = 1 (phase 8, packed route) "
+                f"{dp['seconds_per_step_b1_phase8']} on {dline}; peak "
+                f"{dp['peak_mem_gb_ranks']} GB a rank, "
+                f"{dp['peak_mem_gb_b2']:.2f} GB B = 2; all-reduce "
+                f"{dp['all_reduce_ms_per_step']} ms a step; launches a "
+                f"rank-step {dp['launches_rank_step']}; loss "
+                f"{dp['loss_rel_diff']}, gradients {dp['grad_rel_diff']}, "
+                f"weights {dp['weight_max_abs_diff']} from one process")
+            for name, st in dp["streams"].items():
+                log(f"[data_parallel] streams {name}: "
+                    f"{st['ms_per_frame_ranks']} ms a frame of a rank's "
+                    f"{DP_STREAMS // DP_RANKS} streams, "
+                    f"{st['ms_per_frame_one_process']:.2f} ms of one "
+                    f"process's {DP_STREAMS}; bit-equal {st['bit_equal']}, "
+                    f"max |d logp| {st['logp_max_abs_diff']}")
+        torch.cuda.empty_cache()
+        ut = phase("utilities", lambda: utilities(dev))
+        if ut:
+            log(f"[utilities] autotune {ut['autotune_capacities']} in "
+                f"{ut['autotune_seconds']:.3f} s, launches "
+                f"{ut['autotune_launches']}; trace {ut['trace_seconds']:.3f}"
+                f" s, {ut['trace_bytes']} bytes, kernels "
+                f"{ut['trace_kernels']} (traces taken again, lacking: "
+                f"{ut['trace_lacking']}); visualize_cli "
+                f"{ut['visualize_seconds']:.3f} s, {ut['visualize_files']} "
+                f"on {dline}")
+
     # launches: the training step (this slice's path, on the packed route);
     # the forwards' counts beside them
     launches = (report.get("train") or {}).get("launches") or {}
@@ -2286,8 +2774,15 @@ def main(argv=None) -> int:
             loop_device_ms_per_step=(((report.get("loop") or {}).get(
                 "hand_written") or {}).get(name) or {}).get(
                 "device_ms_per_step"),
+            launches_dp_rank_step=((report.get("data_parallel") or {}).get(
+                "launches_rank_step") or {}).get(name, 0),
+            launches_autotune=((report.get("utilities") or {}).get(
+                "autotune_launches") or {}).get(name, 0),
             cases=k.get("cases")))
     report["device_line"] = dline
+    report["profiler_retries"] = PROFILER_RETRIES
+    log(f"[profiler] {len(PROFILER_RETRIES)} windows taken again after "
+        f"losing device events: {PROFILER_RETRIES}")
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)

@@ -211,12 +211,19 @@ class AFlowFusion(nn.Module):
     hidden state are weighted by w = (alpha - min(d, alpha)) * beta with
     row-normalised feature distances d; their weighted sum is concatenated
     with the current features through a Linear + ReLU.  New vertices read
-    the -999999 pad, so their weights collapse to zero."""
+    the -999999 pad, so their weights collapse to zero.
+
+    ``sown``: None, or ``(collection, name)`` while ``LNNSeq.sow_aux`` asks
+    for the attention data: each frame after the first then appends its
+    weights (V, 9) and previous-frame neighbor indices (V, 9) to
+    ``collection[name]["aflow_weights"]`` and ``["aflow_neighbors"]`` (what
+    the JAX package sows into its "aux" collection)."""
 
     def __init__(self, channels: int, train_alpha_beta: bool = True,
                  use_center: bool = True, use_bias: bool = True, k: int = 9):
         super().__init__()
         self.use_center = use_center
+        self.sown = None
         self.AFLOW = _AFlowParams(channels, k, train_alpha_beta, use_bias)
         self.linear = Linear(2 * channels, channels)
 
@@ -245,6 +252,12 @@ class AFlowFusion(nn.Module):
             w = w * found
             if not self.use_center:
                 w = torch.cat([w[:, :-1], torch.zeros_like(w[:, -1:])], dim=1)
+            if self.sown is not None:
+                collection, name = self.sown
+                site = collection.setdefault(name, {})
+                for key, x in (("aflow_weights", w.detach()),
+                               ("aflow_neighbors", nbr.idx)):
+                    site[key] = site.get(key, ()) + (x,)
             aflow = torch.einsum("vkc,vk->vc", h_nbr * found[..., None], w)
             if self.AFLOW.bias is not None:
                 aflow = aflow + self.AFLOW.bias

@@ -23,11 +23,13 @@ pre-reduced tensor the pointnet runs per frame.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..config import ModelConfig, RuntimeConfig
 from ..device import resolve_device
@@ -35,7 +37,7 @@ from ..ops import lattice_ops as lo
 from ..ops import vertex_table as vt
 from .blocks import (BottleneckBlock, DeformSlice, GnReluCoarsen, GnReluFinefy,
                      ResnetBlock)
-from .fusion import make_fusion
+from .fusion import AFlowFusion, make_fusion
 from .pointnet import PointNetSeq, subtract_local_mean
 
 SITES = ("early", "middle", "bottleneck", "late")
@@ -170,6 +172,25 @@ class LNNSeq(nn.Module):
             if mod is not self and hasattr(mod, "init_weights"):
                 mod.init_weights(gen)
 
+    @contextlib.contextmanager
+    def sow_aux(self):
+        """Record, for the calls inside, what the JAX package's AFlow fusion
+        sows into its "aux" collection; yields that collection,
+        {"recurrent_fusion_modules_<slot>": {"aflow_weights": (w, ...),
+        "aflow_neighbors": (idx, ...)}}, one entry per frame after the
+        first (the JAX module paths).  Outside it nothing is recorded."""
+        collection = {}
+        sites = {f"recurrent_fusion_modules_{slot}": m
+                 for slot, m in self.recurrent_fusion_modules.items()
+                 if isinstance(m, AFlowFusion)}
+        for name, m in sites.items():
+            m.sown = (collection, name)
+        try:
+            yield collection
+        finally:
+            for m in sites.values():
+                m.sown = None
+
     def _fusion(self, slot: int):
         key = str(slot)
         return (self.recurrent_fusion_modules[key]
@@ -177,8 +198,9 @@ class LNNSeq(nn.Module):
 
     def reduce_pointnet(self, seqlat, values):
         """Batched pointnet MLP + max for all frames: (T, cap0, 2*C)."""
-        return self.point_net_seq.reduce_sorted(
-            seqlat.sorted_pn, values, seqlat.row_bary, seqlat.nr_points)
+        with record_function("pointnet"):
+            return self.point_net_seq.reduce_sorted(
+                seqlat.sorted_pn, values, seqlat.row_bary, seqlat.nr_points)
 
     def _structures(self, state: SeqState, seqlat, dist, positions, mask):
         """This frame's (nbrs, links, counts, dist, tables) from one of the
@@ -227,27 +249,30 @@ class LNNSeq(nn.Module):
         cut = _last_active_site(cfg) if seq else 3
         h = list(state.h)
         pc = list(state.prev_counts)
-        nbrs, links, counts, dist, tables = self._structures(
-            state, seqlat, dist, positions, mask)
+        # profiler spans named as the JAX package's jax.named_scope regions
+        with record_function("distribute"):
+            nbrs, links, counts, dist, tables = self._structures(
+                state, seqlat, dist, positions, mask)
 
         def pack_state():
             return SeqState(h=tuple(h), prev_counts=tuple(pc), t=t + 1,
                             tables=tables)
 
         early_out = {"point_vertex": dist.point_vertex}
-        if pre_reduced is None:
-            values_rows = (values.repeat_interleave(4, dim=0)
-                           * dist.row_valid[:, None])
-            # the sequence lattice counts each vertex's rows in its build
-            offline = seqlat is not None and not isinstance(
-                seqlat, lo.FrameStructures)
-            pre_reduced = self.point_net_seq.reduce_frame(
-                dist, values_rows, nbrs[0].idx.shape[0], counts[0],
-                seqlat.nr_points[t] if offline and seqlat.nr_points
-                is not None else None,
-                drop_past_cap=offline)
-        lv, h[0] = self.point_net_seq.fuse_and_conv(
-            pre_reduced, nbrs[0], counts[0], h[0], pc[0], is_first)
+        with record_function("pointnet"):
+            if pre_reduced is None:
+                values_rows = (values.repeat_interleave(4, dim=0)
+                               * dist.row_valid[:, None])
+                # the sequence lattice counts each vertex's rows in its build
+                offline = seqlat is not None and not isinstance(
+                    seqlat, lo.FrameStructures)
+                pre_reduced = self.point_net_seq.reduce_frame(
+                    dist, values_rows, nbrs[0].idx.shape[0], counts[0],
+                    seqlat.nr_points[t] if offline and seqlat.nr_points
+                    is not None else None,
+                    drop_past_cap=offline)
+            lv, h[0] = self.point_net_seq.fuse_and_conv(
+                pre_reduced, nbrs[0], counts[0], h[0], pc[0], is_first)
         pc[0] = counts[0]
         if (not final) and seq and cut <= 0:
             return None, pack_state(), early_out

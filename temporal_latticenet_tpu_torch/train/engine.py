@@ -17,8 +17,10 @@ step differentiates that forward end to end (backpropagation through time
 over the carried fusion states) under the loss of ``models/losses.py`` and
 takes one AdamW(amsgrad) step; the slice head's dropout
 (``dropout_last_layer``) runs in the training step's final frame only, from
-a generator seeded by the step count.  Batches of more than one sequence
-are not ported.
+a generator seeded by the step count and the sequence's index in the batch.
+A batch of B sequences takes the mean of their losses, with the gradient
+summed one sequence at a time; under a ``parallel.mesh.Mesh`` the ranks
+split the batch and all-reduce the gradient (data parallelism).
 
 Streaming inference serves one scan at a time, as a deployed system does:
 the vertex tables and fusion states carry over between frames, and each
@@ -44,6 +46,7 @@ from ..models.pointnet import subtract_local_mean
 from ..models.losses import segmentation_loss
 from ..ops import lattice_ops as lo
 from ..ops import seq_lattice as sl
+from ..parallel import mesh as pmesh
 from . import optim
 
 REMAT_MODES = ("none", "selective", "full")
@@ -68,12 +71,16 @@ def batched_pointnet(cfg: ModelConfig, rt: RuntimeConfig) -> bool:
             and cfg.experiment == "none")
 
 
-def dropout_generator(device, step: int) -> torch.Generator:
-    """The generator of one training step's dropout mask, on ``device``:
-    seeded by the step count, so that a resumed run draws the masks it
-    would have drawn."""
+def dropout_generator(device, step: int, index: int = 0) -> torch.Generator:
+    """The generator of one training step's dropout mask for the sequence
+    at ``index`` of the (global) batch, on ``device``: seeded by the step
+    count and the index, so that a resumed run, and ranks that split the
+    batch, draw the masks one process would have drawn.  The index is
+    mixed into the seed's low 32 bits, the only ones the CPU's Mersenne
+    Twister reads; index 0 gives the seed of a batch of one."""
+    low = (int(step) + int(index) * 0x9E3779B9) & 0xFFFFFFFF
     return torch.Generator(device=device).manual_seed(
-        (DROPOUT_SEED << 32) + int(step))
+        (DROPOUT_SEED << 32) + low)
 
 
 def sequence_lattice(cfg: ModelConfig, rt: RuntimeConfig,
@@ -395,16 +402,21 @@ def make_streaming_inference_batched(model: LNNSeq, cfg: ModelConfig,
 
     Returns ``(new_states_fn, step_fn, final_fn)``, with ``incremental``
     ``(new_states_fn, step_full_fn, step_fn, final_fn)``:
-      new_states_fn(B)                           -> carry (a list of B states)
+      new_states_fn(B)                           -> carry (a list of states)
       step_fn(pos (B,P,3), vals (B,P,V), mask (B,P), carry) -> carry
       final_fn(...)  -> (logp (B,P,K), logits (B,P,K), carry, aux stacked)
-    A ``mesh`` (the JAX package's sharding of the streams over devices) is
-    not ported.
+
+    With a ``parallel.mesh.Mesh`` the streams are split over its ranks: the
+    inputs stay the global (B, ...) arrays (B a multiple of the world size),
+    rank r keeps and steps only streams ``[r*B/R, (r+1)*B/R)`` with no
+    collective (the streams are independent), and ``final_fn`` gathers the
+    log-probabilities, logits and aux of every stream onto every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding the streams over a device mesh is not ported to "
-            "PyTorch yet")
+    if mesh is not None and not isinstance(mesh, pmesh.Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    world, rank = (mesh.world_size, mesh.rank) if mesh is not None \
+        else (1, 0)
     # each stream's carry as the single-stream functions take it, unpacked
     if incremental:
         new1, full1, step1, final1 = make_streaming_inference_incremental(
@@ -415,22 +427,31 @@ def make_streaming_inference_batched(model: LNNSeq, cfg: ModelConfig,
         args, carry_of = (lambda c: (c,)), (lambda out: out[2])
 
     def new_states_fn(b: int):
-        return [new1() for _ in range(b)]
+        if b % world:
+            raise ValueError(f"{b} streams do not split over {world} ranks")
+        return [new1() for _ in range(b // world)]
+
+    def own(carry):
+        """The global indices of this rank's streams."""
+        return range(rank * len(carry), (rank + 1) * len(carry))
 
     def stepper(fn):
         def step_fn(positions, values, mask, carry):
             return [fn(positions[i], values[i], mask[i], *args(c))
-                    for i, c in enumerate(carry)]
+                    for i, c in zip(own(carry), carry)]
         return step_fn
 
     def final_fn(positions, values, mask, carry):
         outs = [final1(positions[i], values[i], mask[i], *args(c))
-                for i, c in enumerate(carry)]
+                for i, c in zip(own(carry), carry)]
+        stacked = [torch.stack([o[0] for o in outs]),
+                   torch.stack([o[1] for o in outs])]
         aux = {k: torch.stack([torch.as_tensor(o[-1][k]) for o in outs])
                for k in outs[0][-1]}
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]),
-                [carry_of(o) for o in outs], aux)
+        if mesh is not None:
+            stacked = [pmesh.all_gather(mesh, t) for t in stacked]
+            aux = {k: pmesh.all_gather(mesh, v) for k, v in aux.items()}
+        return stacked[0], stacked[1], [carry_of(o) for o in outs], aux
 
     if incremental:
         return new_states_fn, stepper(full1), stepper(step1), final_fn
@@ -488,94 +509,137 @@ def create_train_state(cfg: ModelConfig, rt: RuntimeConfig, lr: float,
 
 
 def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
-                    ignore_index: int = 0, watch_grads: bool = False):
+                    ignore_index: int = 0, watch_grads: bool = False,
+                    mesh=None):
     """The training and evaluation steps of one model.
 
-    ``train_step(state, batch, lr_scale) -> (state, logp (1, P, classes),
-    metrics)``: the loss of the last frame (0.5 Lovász + 0.5 NLL), its
-    gradient through every frame, and one AdamW step at ``lr * lr_scale``.
-    Metrics (0-d tensors on the device): loss, lovasz, nll, grad_norm (the
-    global norm of the gradients), nr_vertices and vertex_overflow; with
+    ``train_step(state, batch, lr_scale) -> (state, logp (B, P, classes),
+    metrics)``: the loss of a batch of B sequences is the mean of their last
+    frames' losses (0.5 Lovász + 0.5 NLL), its gradient runs through every
+    frame, and one AdamW step at ``lr * lr_scale`` follows.  The gradient
+    is computed one sequence at a time (``backward`` of each loss over B,
+    summed by autograd in ``.grad``), so the peak memory is one sequence's.
+    Metrics (0-d tensors on the device): loss, lovasz and nll (means over
+    the batch), grad_norm (the global norm of the summed gradient),
+    nr_vertices (the largest) and vertex_overflow (any); with
     ``watch_grads`` also grad_norms, {parameter name: its gradient's norm}
     (what ``wandb.watch`` tracks in the reference); with dropout
-    (``dropout_last_layer > 0``) also dropped_share, the share of the final
-    frame's slice features dropped.
+    (``dropout_last_layer > 0``) also dropped_share, the mean share of the
+    final frames' slice features dropped.  Sequence ``i`` of the batch
+    draws its dropout mask from ``dropout_generator(device, step, i)``.
     ``eval_step(batch) -> (logp, metrics)`` runs without gradients, and so
     does ``train_step.loss_step(batch)``, the forward and loss alone; both
     run without dropout.  ``train_step.grad_step(batch, step=0) -> (loss,
     {name: grad})`` returns the gradients of the training step ``step``
-    (its dropout mask) without an optimizer step.  The rematerialisation
-    is ``rt.remat_mode``.  Batches hold one sequence.
+    (its dropout masks) without an optimizer step.  The rematerialisation
+    is ``rt.remat_mode``.
+
+    With a ``parallel.mesh.Mesh``, each rank passes its own ``B / R``
+    sequences of the global batch (``mesh.shard_batch``): ``train_step`` and
+    ``grad_step`` average the ranks' gradients in one all-reduce before the
+    optimizer step and reduce the metrics to the global batch's, so that R
+    ranks take the step one process takes with the whole batch, and every
+    rank keeps the same weights.  ``logp`` is the rank's own sequences';
+    ``eval_step`` and ``loss_step`` run on the rank's batch alone.
     """
+    if mesh is not None and not isinstance(mesh, pmesh.Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
     seq_fwd = sequence_forward(model, cfg, rt, remat=rt.remat_mode or "full")
     dev = model.device
     params = dict(model.named_parameters())
+    rank = mesh.rank if mesh is not None else 0
 
-    def loss_one(batch: SeqBatch, step=None):
-        """The loss of one batch; ``step`` (a training step's count) turns
-        the slice head's dropout on."""
-        b = batch.positions.shape[0]
-        if b != 1:
-            raise NotImplementedError(
-                f"batches of {b} sequences: only batches of one are ported "
-                f"to PyTorch yet")
-        gen = (dropout_generator(dev, step)
-               if step is not None and cfg.dropout_last_layer > 0 else None)
-        logp, _, aux = seq_fwd(batch.positions[0], batch.values[0],
-                               batch.mask[0], gen)
-        labels = torch.as_tensor(batch.labels[0][-1], device=dev)
-        mask = torch.as_tensor(batch.mask[0][-1], device=dev)
+    def loss_one(batch: SeqBatch, i: int, gen=None):
+        """The loss of sequence ``i`` of the batch, with the slice head's
+        dropout drawn from ``gen`` (None: no dropout)."""
+        logp, _, aux = seq_fwd(batch.positions[i], batch.values[i],
+                               batch.mask[i], gen)
+        labels = torch.as_tensor(batch.labels[i][-1], device=dev)
+        mask = torch.as_tensor(batch.mask[i][-1], device=dev)
         loss, parts = segmentation_loss(logp, labels, mask, ignore_index)
         return loss, logp, parts, aux
 
-    def metrics_of(loss, parts, aux):
-        return {"loss": loss.detach(), "lovasz": parts["lovasz"].detach(),
-                "nll": parts["nll"].detach(),
-                "nr_vertices": aux["nr_vertices"],
-                "vertex_overflow": aux["vertex_overflow"]}
+    def batch_metrics(outs):
+        """The batch's metrics from each sequence's (loss, logp, parts,
+        aux)."""
+        def mean(xs):
+            return torch.stack([x.detach() for x in xs]).mean()
+        m = {"loss": mean([o[0] for o in outs]),
+             "lovasz": mean([o[2]["lovasz"] for o in outs]),
+             "nll": mean([o[2]["nll"] for o in outs]),
+             "nr_vertices": torch.stack(
+                 [o[3]["nr_vertices"] for o in outs]).max(),
+             "vertex_overflow": torch.stack(
+                 [o[3]["vertex_overflow"] for o in outs]).any()}
+        if "dropped_share" in outs[0][3]:
+            m["dropped_share"] = mean([o[3]["dropped_share"] for o in outs])
+        return m, torch.stack([o[1].detach() for o in outs])
+
+    def reduce_metrics(m):
+        """The rank's metrics -> the global batch's (means averaged over the
+        ranks, which hold equal shares; the rest their maxima)."""
+        means = [k for k in ("loss", "lovasz", "nll", "dropped_share")
+                 if k in m]
+        vals = [m[k].clone() for k in means]
+        pmesh.all_reduce_mean(mesh, vals)
+        m.update(zip(means, vals))
+        for k in ("nr_vertices", "vertex_overflow"):
+            m[k] = pmesh.all_reduce_max(mesh, m[k])
+        return m
 
     def gradients(batch: SeqBatch, step: int):
         for p in params.values():
             p.grad = None
-        loss, logp, parts, aux = loss_one(batch, step)
-        loss.backward()
+        b = batch.positions.shape[0]
+        drop = cfg.dropout_last_layer > 0
+        outs = []
+        for i in range(b):
+            gen = dropout_generator(dev, step, rank * b + i) if drop else None
+            out = loss_one(batch, i, gen)
+            (out[0] / b).backward()
+            outs.append(out)
         # parameters the loss does not reach get a zero gradient, so that
         # AdamW still decays them, as the optax chain does
         for p in params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return loss, logp, parts, aux
+        metrics, logp = batch_metrics(outs)
+        if mesh is not None:
+            pmesh.all_reduce_mean(mesh, [p.grad for p in params.values()])
+            metrics = reduce_metrics(metrics)
+        return metrics, logp
 
     def train_step(state: TrainState, batch: SeqBatch, lr_scale):
-        loss, logp, parts, aux = gradients(batch, state.step)
+        metrics, logp = gradients(batch, state.step)
         gsq = torch.stack([(p.grad.float() ** 2).sum()
                            for p in params.values()])
-        metrics = metrics_of(loss, parts, aux)
         metrics["grad_norm"] = torch.sqrt(gsq.sum())
-        if "dropped_share" in aux:
-            metrics["dropped_share"] = aux["dropped_share"]
         if watch_grads:
             metrics["grad_norms"] = dict(zip(params, torch.sqrt(gsq)))
         optim.set_lr_scale(state.optimizer, lr_scale)
         state.optimizer.step()
         state.step += 1
-        return state, logp.detach()[None], metrics
+        return state, logp, metrics
+
+    def without_dropout(batch: SeqBatch):
+        return batch_metrics([loss_one(batch, i)
+                              for i in range(batch.positions.shape[0])])
 
     @torch.no_grad()
     def loss_step(batch: SeqBatch):
-        loss, logp, parts, aux = loss_one(batch)
-        return logp[None], metrics_of(loss, parts, aux)
+        metrics, logp = without_dropout(batch)
+        return logp, metrics
 
     def grad_step(batch: SeqBatch, step: int = 0):
-        loss, _, _, _ = gradients(batch, step)
-        return loss.detach(), {k: p.grad for k, p in params.items()}
+        metrics, _ = gradients(batch, step)
+        return metrics["loss"], {k: p.grad for k, p in params.items()}
 
     @torch.no_grad()
     def eval_step(batch: SeqBatch):
-        loss, logp, _, aux = loss_one(batch)
-        return logp[None], {"loss": loss,
-                            "nr_vertices": aux["nr_vertices"],
-                            "vertex_overflow": aux["vertex_overflow"]}
+        metrics, logp = without_dropout(batch)
+        return logp, {k: metrics[k] for k in ("loss", "nr_vertices",
+                                              "vertex_overflow")}
 
     train_step.loss_step = loss_step
     train_step.grad_step = grad_step

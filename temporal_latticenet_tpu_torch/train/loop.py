@@ -4,13 +4,19 @@ over the port's training step and forward, driven by one ``.cfg`` file.
 
 They run on CUDA unless ``device`` asks for the CPU, and never fall back to
 the CPU on their own.  Per step the host reads what the JAX loop reads, in
-the same order: the (1, P) int32 predictions (an argmax on the device),
+the same order: the (B, P) int32 predictions (an argmax on the device),
 the loss and the other logged metrics, then ``vertex_overflow``.
 
-Differences from the JAX loop: batches hold one sequence (a
-``train.batch_size`` above 1 raises), ``core.debug_with_profiler`` traces
-with ``torch.profiler``, and the submission check after a full split is
-this package's :func:`evaluate_semantics.validate`.
+``train.batch_size`` is the global count of sequences per optimizer step:
+without a mesh one device runs them all, with a ``parallel.mesh.Mesh`` each
+rank runs ``batch_size / world_size`` of them (every rank draws the same
+shuffle and takes its own stride of it, cut to a common length, as the JAX
+loop's processes do), and only rank 0 writes checkpoints, CSVs, plots and
+traces.  The valid phase is not split: every rank runs all of it.
+
+Differences from the JAX loop: ``core.debug_with_profiler`` traces with
+``torch.profiler`` (``utils/profiling.trace``), and the submission check
+after a full split is this package's :func:`evaluate_semantics.validate`.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from ..config import (ModelConfig, RuntimeConfig, cfgParser,
                       runtime_config_from_cfg)
 from ..data.kitti import SemanticKittiDataset
 from ..device import resolve_device
+from ..parallel import mesh as pmesh
+from ..utils import profiling
 from . import checkpoint as ckpt
 from . import engine, optim
 from .callbacks import CallbacksGroup, Phase, StateCallback, WandBCallback
@@ -77,12 +85,32 @@ def _prefetch(iterable, depth: int = 2):
         t.join()
 
 
-def _sequence_order(n: int, shuffle: bool, rng: np.random.Generator):
-    """Epoch order of sequence indices (one process)."""
+def _sequence_order(n: int, shuffle: bool, rng: np.random.Generator,
+                    mesh=None):
+    """Epoch order of sequence indices; with a ``mesh``, this rank's share.
+
+    Every rank draws the same shuffle (the same seed), then rank r takes
+    indices ``r::world_size``, cut to a common length so that every rank
+    runs the same number of steps (a rank with one step more would wait in
+    the gradient all-reduce forever)."""
     order = np.arange(n)
     if shuffle:
         rng.shuffle(order)
+    if mesh is not None and mesh.world_size > 1:
+        per = n // mesh.world_size
+        order = order[mesh.rank::mesh.world_size][:per]
     return order
+
+
+def _grouped(items, k: int):
+    """Consecutive groups of ``k`` items; a shorter remainder is dropped
+    (a step needs a full batch; the next epoch's shuffle brings it back)."""
+    buf = []
+    for item in items:
+        buf.append(item)
+        if len(buf) == k:
+            yield buf
+            buf = []
 
 
 def make_datasets(parser: cfgParser, cfg: ModelConfig, rt: RuntimeConfig,
@@ -120,25 +148,27 @@ def _setup(parser: cfgParser, device):
 
 
 def run_training(config_file: str, max_steps: int | None = None,
-                 datasets=None, device=None):
+                 datasets=None, device=None, mesh=None):
     """Train from ``config_file``; returns ``(model, state)``.
 
-    ``max_steps`` stops after that many sequences (train and valid counted
+    ``max_steps`` stops after that many steps (train and valid counted
     together, as in the JAX loop); ``datasets`` ({"train", "valid"})
-    replaces the cfg's."""
+    replaces the cfg's.  With a ``parallel.mesh.Mesh`` the model lives on
+    the rank's device (``device`` is not used) and the train phase is split
+    over the ranks."""
     parser = cfgParser(config_file)
     train_cfg = parser.get_train_vars()
     loader_cfg = parser.get_loader_vars()
     label_cfg = parser.get_label_mngr_vars()
     ignore_index = label_cfg.get("unlabeled_idx", 0)
-    cfg, rt, dev = _setup(parser, device)
+    cfg, rt, dev = _setup(parser, mesh.device if mesh is not None else device)
+    world = mesh.world_size if mesh is not None else 1
+    root = mesh is None or mesh.rank == 0
 
     bs = int(train_cfg.get("batch_size", 1))
-    if bs > 1:
-        raise NotImplementedError(
-            f"train.batch_size={bs}: batches of more than one sequence need "
-            f"data parallelism over several cards (DDP, ROADMAP A12.6), "
-            f"which is not ported to PyTorch yet; use batch_size: 1")
+    if bs % world:
+        raise ValueError(f"train.batch_size={bs} does not split over "
+                         f"{world} ranks")
 
     model, state = engine.create_train_state(
         cfg, rt, lr=train_cfg["lr"], weight_decay=train_cfg["weight_decay"],
@@ -147,7 +177,7 @@ def run_training(config_file: str, max_steps: int | None = None,
         model, cfg, rt, ignore_index,
         # per-parameter gradient norms (wandb.watch's analog); only paid
         # for when wandb is on
-        watch_grads=bool(train_cfg.get("with_wandb")))
+        watch_grads=bool(train_cfg.get("with_wandb")), mesh=mesh)
 
     if datasets is None:
         datasets = make_datasets(parser, cfg, rt)
@@ -157,28 +187,26 @@ def run_training(config_file: str, max_steps: int | None = None,
                             train_cfg["load_checkpoint_model"])
         state.step = ckpt.load(path, model, state.optimizer, cfg=cfg)
         print("loaded checkpoint:", path)
+    if mesh is not None:
+        pmesh.replicate(mesh, model)
+        if root:
+            print(f"data parallel: {bs} sequences/step over {world} ranks")
 
     cbs = [StateCallback()]
-    if train_cfg.get("with_wandb"):
+    if root and train_cfg.get("with_wandb"):
         cbs.append(WandBCallback("temporal_latticenet_tpu", parser.contents))
-    if train_cfg.get("with_visdom"):
+    if root and train_cfg.get("with_visdom"):
         from .callbacks import PlotCallback
         cbs.append(PlotCallback(os.path.join(
             train_cfg.get("checkpoint_path", "."), "plots")))
     cb = CallbacksGroup(cbs)
+    save = root and train_cfg.get("save_checkpoint")
 
     # core.debug_with_profiler: a torch.profiler trace of the first epoch
-    profiler, profiler_dir = None, None
-    if parser.get_core_vars().get("debug_with_profiler"):
-        from torch.profiler import ProfilerActivity, profile
-        profiler_dir = os.path.join(train_cfg.get("checkpoint_path", "."),
-                                    "profile")
-        os.makedirs(profiler_dir, exist_ok=True)
-        acts = [ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=acts)
-        profiler.start()
+    trace = contextlib.ExitStack()
+    if root and parser.get_core_vars().get("debug_with_profiler"):
+        trace.enter_context(profiling.trace(os.path.join(
+            train_cfg.get("checkpoint_path", "."), "profile")))
 
     phases = [Phase("train", datasets["train"], grad=True),
               Phase("valid", datasets["valid"], grad=False)]
@@ -197,90 +225,93 @@ def run_training(config_file: str, max_steps: int | None = None,
     rng = np.random.default_rng(0)
     steps_done = 0
 
-    for epoch in range(start_epoch, int(train_cfg["training_epochs"])):
-        for phase in phases:
-            cb.epoch_started(phase=phase)
-            order = _sequence_order(
-                len(phase.loader),
-                phase.grad and loader_cfg.get("shuffle", False), rng)
-            n_steps_epoch = max(len(order), 1)
-            with contextlib.closing(_prefetch(
-                    phase.loader[int(i)] for i in order)) as it:
-                for seq_i, frames in enumerate(it):
-                    batch = engine.SeqBatch.stack([frames], dev)
-                    if phase.grad:
-                        if scheduler_kind == "CosineAnnealingWarmRestarts":
-                            frac = phase.epoch_nr + seq_i / n_steps_epoch
-                            lr_scale = optim.cosine_warm_restarts(
-                                frac, restart_epochs)
+    with trace:
+        for epoch in range(start_epoch, int(train_cfg["training_epochs"])):
+            for phase in phases:
+                cb.epoch_started(phase=phase)
+                order = _sequence_order(
+                    len(phase.loader),
+                    phase.grad and loader_cfg.get("shuffle", False), rng,
+                    mesh if phase.grad else None)
+                group = bs // world if phase.grad else 1
+                if phase.grad and len(order) < group:
+                    raise ValueError(
+                        f"batch_size={bs} exceeds the train split's "
+                        f"{len(order) * world} sequences: every epoch would "
+                        f"run zero optimiser steps. Lower train.batch_size.")
+                n_steps_epoch = max(len(order) // group, 1)
+                with contextlib.closing(_prefetch(
+                        phase.loader[int(i)] for i in order)) as it:
+                    for seq_i, seqs in enumerate(_grouped(it, group)):
+                        batch = engine.SeqBatch.stack(seqs, dev)
+                        if phase.grad:
+                            if scheduler_kind == "CosineAnnealingWarmRestarts":
+                                frac = phase.epoch_nr + seq_i / n_steps_epoch
+                                lr_scale = optim.cosine_warm_restarts(
+                                    frac, restart_epochs)
+                            else:
+                                lr_scale = plateau.scale
+                            state, logp, metrics = train_step(state, batch,
+                                                              lr_scale)
                         else:
-                            lr_scale = plateau.scale
-                        state, logp, metrics = train_step(state, batch,
-                                                          lr_scale)
-                    else:
-                        logp, metrics = eval_step(batch)
-                        lr_scale = 0.0
+                            logp, metrics = eval_step(batch)
+                            lr_scale = 0.0
 
-                    preds = _predict(logp)
-                    last = frames[-1]
-                    cb.after_forward_pass(
-                        phase=phase, loss=float(metrics["loss"]),
-                        loss_dice=float(metrics.get("lovasz", 0.0)),
-                        grad_norm=float(metrics.get("grad_norm", 0.0)),
-                        grad_norms=_host_dict(metrics.get("grad_norms")),
-                        pred_labels=preds[0][last.mask],
-                        nr_classes=cfg.nr_classes,
-                        target=last.labels[last.mask],
-                        ignore_index=ignore_index, lr=lr_scale)
+                        preds = _predict(logp)
+                        grad_norms = _host_dict(metrics.get("grad_norms"))
+                        for bi, frames in enumerate(seqs):
+                            last = frames[-1]
+                            cb.after_forward_pass(
+                                phase=phase, loss=float(metrics["loss"]),
+                                loss_dice=float(metrics.get("lovasz", 0.0)),
+                                grad_norm=float(metrics.get("grad_norm",
+                                                            0.0)),
+                                grad_norms=grad_norms,
+                                pred_labels=preds[bi][last.mask],
+                                nr_classes=cfg.nr_classes,
+                                target=last.labels[last.mask],
+                                ignore_index=ignore_index, lr=lr_scale)
 
-                    steps_done += 1
-                    if bool(metrics.get("vertex_overflow", False)):
-                        print("WARNING: vertex table saturated this sequence "
-                              "(capacity reached; any further vertices were "
-                              "dropped to the invalid bucket); raise "
-                              "runtime.capacity_level0")
-                    # periodic fault-tolerance checkpoint (weights, optimizer
-                    # and step)
-                    every = train_cfg.get("save_every_n_steps", 0)
-                    if (phase.grad and every and steps_done % every == 0
-                            and train_cfg.get("save_checkpoint")):
-                        ckpt.save(os.path.join(train_cfg["checkpoint_path"],
-                                               "latest.ckpt"),
-                                  model, state.optimizer, state.step)
-                    if max_steps is not None and steps_done >= max_steps:
-                        break
+                        steps_done += 1
+                        if root and bool(metrics.get("vertex_overflow",
+                                                     False)):
+                            print("WARNING: vertex table saturated this "
+                                  "sequence (capacity reached; any further "
+                                  "vertices were dropped to the invalid "
+                                  "bucket); raise runtime.capacity_level0 "
+                                  "(see utils/autotune.py)")
+                        # periodic fault-tolerance checkpoint (weights,
+                        # optimizer and step)
+                        every = train_cfg.get("save_every_n_steps", 0)
+                        if (phase.grad and every and save
+                                and steps_done % every == 0):
+                            ckpt.save(os.path.join(
+                                train_cfg["checkpoint_path"], "latest.ckpt"),
+                                model, state.optimizer, state.step)
+                        if max_steps is not None and steps_done >= max_steps:
+                            break
 
-            name = ckpt.checkpoint_name(
-                loader_cfg.get("include_moving_classes", False),
-                train_cfg["dataset_name"], cfg.values_mode, rt.sigma,
-                cfg.rnn_modules, cfg.frames_per_seq,
-                loader_cfg.get("cloud_scope", 1), epoch,
-                loader_cfg.get("accumulate_clouds", False))
-            if phase.grad and train_cfg.get("save_checkpoint"):
-                path = os.path.join(train_cfg["checkpoint_path"],
-                                    name + ".ckpt")
-                ckpt.save(path, model, state.optimizer, state.step)
-                print("saved checkpoint:", path)
-            if not phase.grad and scheduler_kind == "ReduceLROnPlateau":
-                plateau.step(phase.loss_acum_per_epoch)
-            cb.epoch_ended(phase=phase,
-                           checkpoint_path=train_cfg.get("checkpoint_path"),
-                           name=name)
-        if max_steps is not None and steps_done >= max_steps:
-            break
-        if profiler is not None:
-            _stop_profiler(profiler, profiler_dir)
-            profiler = None
-    if profiler is not None:
-        _stop_profiler(profiler, profiler_dir)
+                name = ckpt.checkpoint_name(
+                    loader_cfg.get("include_moving_classes", False),
+                    train_cfg["dataset_name"], cfg.values_mode, rt.sigma,
+                    cfg.rnn_modules, cfg.frames_per_seq,
+                    loader_cfg.get("cloud_scope", 1), epoch,
+                    loader_cfg.get("accumulate_clouds", False))
+                if phase.grad and save:
+                    path = os.path.join(train_cfg["checkpoint_path"],
+                                        name + ".ckpt")
+                    ckpt.save(path, model, state.optimizer, state.step)
+                    print("saved checkpoint:", path)
+                if not phase.grad and scheduler_kind == "ReduceLROnPlateau":
+                    plateau.step(phase.loss_acum_per_epoch)
+                cb.epoch_ended(phase=phase,
+                               checkpoint_path=(train_cfg.get(
+                                   "checkpoint_path") if root else None),
+                               name=name)
+            if max_steps is not None and steps_done >= max_steps:
+                break
+            trace.close()   # the trace covers the first epoch
     return model, state
-
-
-def _stop_profiler(profiler, out_dir: str):
-    profiler.stop()
-    path = os.path.join(out_dir, "trace.json")
-    profiler.export_chrome_trace(path)
-    print("profiler trace written to", path)
 
 
 def run_eval(config_file: str, split: str = "test",

@@ -138,14 +138,15 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What the port still leaves out raises: streams sharded over a device
-    mesh.  Every experiment builds its model and both forwards; one that
+    """A mesh that is not a ``parallel.mesh.Mesh`` raises a TypeError (the
+    streams over ranks are tests/test_torch_parallel.py's).  Every
+    experiment builds its model and both forwards; one that
     changes the pointnet's reduced width behind an early GRU raises a
     ValueError at construction (the JAX package cannot run it either).  The
     fusion kinds, the non-batched route and float32 streaming run."""
     cfg, rt = ModelConfig(), RuntimeConfig(**RT)
     model = LNNSeq(cfg, rt, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         make_streaming_inference_batched(model, cfg, rt, mesh=object())
     width_changing = ("pointnet_no_elevate",
                       "pointnet_no_elevate_no_local_mean", "splat",

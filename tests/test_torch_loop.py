@@ -292,10 +292,21 @@ def test_prefetch_stops_its_thread_when_closed():
 
 
 def test_batch_size_above_one_raises(tiny_world):  # noqa: F811
+    """``batch_size: 2`` runs on one device: one step of two of the three
+    train sequences (the remainder is dropped, as in the JAX loop).  A
+    batch larger than the train split raises the JAX loop's ValueError.
+    The same cfg over two ranks is tests/test_torch_parallel.py's."""
     tmp_path, cfg_path = tiny_world
     bp = _edit(tmp_path, cfg_path, "dp.cfg", ("batch_size: 1", "batch_size: 2"))
-    with pytest.raises(NotImplementedError, match="A12.6"):
-        tloop.run_training(bp, datasets=_datasets(cfg_path), device="cpu")
+    model, state = tloop.run_training(bp, datasets=_datasets(cfg_path),
+                                      device="cpu")
+    assert state.step == 1
+    assert any(c.endswith("_epoch0.ckpt")
+               for c in os.listdir(tmp_path / "ckpts"))
+    big = _edit(tmp_path, cfg_path, "big.cfg",
+                ("batch_size: 1", "batch_size: 4"))
+    with pytest.raises(ValueError, match="batch_size=4"):
+        tloop.run_training(big, datasets=_datasets(cfg_path), device="cpu")
 
 
 def test_clis_on_cpu(tiny_world, capsys):  # noqa: F811

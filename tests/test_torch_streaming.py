@@ -472,7 +472,9 @@ def test_streaming_batched_matches_single_streams(tiny, incremental):
             else final1(PB[2, b], VB[2, b], MB[2, b], s)
         assert torch.equal(out[0], logp[b])
         assert torch.equal(out[1], sv[b])
-    with pytest.raises(NotImplementedError):
+    # a mesh must be a parallel.mesh.Mesh (tests/test_torch_parallel.py
+    # runs the streams over two ranks)
+    with pytest.raises(TypeError):
         engine.make_streaming_inference_batched(model, cfg, rt, mesh=object())
 
 

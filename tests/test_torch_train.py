@@ -179,9 +179,10 @@ def test_train_step_metrics_and_update(jparams, batch):
 
 
 def test_unported_training_options_raise(jparams, batch):
-    """Batches of two sequences and unknown remat modes raise.  Dropout in
-    the slice head runs: the training step takes it, and ``eval_step``
-    stays deterministic."""
+    """Unknown remat modes raise; a batch of two sequences runs (the mean
+    of its losses, (2, P, K) log-probabilities).  Dropout in the slice head
+    runs: the training step takes it, and ``eval_step`` stays
+    deterministic."""
     cfg, rt = ModelConfig(), RuntimeConfig(**RT)
     dcfg = dataclasses.replace(cfg, dropout_last_layer=0.2)
     model, state = engine.create_train_state(dcfg, rt, 1e-3, 1e-3,
@@ -196,7 +197,10 @@ def test_unported_training_options_raise(jparams, batch):
     assert torch.equal(a, b) and float(ma["loss"]) == float(mb["loss"])
     _, _, train_step, eval_step = _port(jparams)
     two = engine.SeqBatch(*(np.concatenate([a, a]) for a in batch))
-    with pytest.raises(NotImplementedError):
-        eval_step(two)
+    logp2, m2 = eval_step(two)
+    logp1, m1 = eval_step(engine.SeqBatch(*batch))
+    assert logp2.shape == (2, P, cfg.nr_classes)
+    assert torch.equal(logp2[0], logp1[0]) and torch.equal(logp2[1], logp1[0])
+    assert float(m2["loss"]) == float(m1["loss"])
     with pytest.raises(ValueError):
         engine.sequence_forward(model, cfg, rt, remat="some")
