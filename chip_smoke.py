@@ -152,7 +152,25 @@ Phases, in order; any failure exits non-zero without the final line:
     one sequence of the reduced geometry from the shipped eval cfg
     without ``--render`` (one ``.npz`` per frame after the first, weights
     finite, neighbors inside the capacity), each with its seconds;
-19. one JSON line with the kernels, the device line, and the result line
+19. the accuracy experiments (``temporal_latticenet_tpu_torch/
+    experiments/``) at the small scale (32,768-point scans): the occupancy
+    probe over 2 moving worlds of 8 scans (every level's worst union count
+    under its capacity); ``train_lidar`` (2 worlds of 6 scans and a
+    held-out one, full width, written under ``build/``) for 2 epochs in
+    each of the temporal, static and accumulated variants, the temporal
+    one resumed for a third epoch from its newest epoch checkpoint, and
+    the generalization run's flags (no moving actors, augmentation,
+    selective remat); then ``overfit_lidar --smoke`` for 4 epochs, its
+    valid ``.label`` files scored again by ``evaluate_semantics``.  Each
+    run: finite losses, K1-K4 launched in every training step and K5 in
+    none, the epochs trained (the resume only the missing one), one
+    checkpoint an epoch, the JAX scripts' results keys with IoUs in
+    [0, 1]; the overfit's last epoch's mean loss below its first's and
+    ``evaluate_semantics``'s mIoU equal to ``run_eval``'s.  It reports each
+    run's seconds a step (median and quartiles, host clock), the loader's
+    seconds a window, peak memory, launches a step, each epoch's mean loss
+    and the train and valid mIoU;
+20. one JSON line with the kernels, the device line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Phase 8 also reports the deform slice's gather backward
@@ -294,6 +312,22 @@ DP_DIR = os.path.join(ROOT, "build", "dp_smoke")
 UTIL_DIR = os.path.join(ROOT, "build", "utils_smoke")
 AUTOTUNE_KERNELS = ("fused_simplex_pack", "sorted_segment_scan",
                     "seg_sum_tails")
+# phase 19: the accuracy experiments at the small scale
+EXP_DIR = os.path.join(ROOT, "build", "experiments_smoke")
+EXP_SIZE = ["--scale", "small", "--worlds", "2", "--scans", "6"]
+EXP_OCCUPANCY = ["--scale", "small", "--moving", "1", "--worlds", "2",
+                 "--scans", "8", "--stride", "1"]
+EXP_EPOCHS = 2
+OVERFIT_EPOCHS = 4
+LOADER_WINDOWS = 6     # windows timed through the loader alone
+# the keys of the JAX package's results JSON (scripts/train_lidar.py:334-357,
+# scripts/overfit_lidar.py:219-231)
+TRAIN_LIDAR_KEYS = ("variant", "moving", "worlds", "scans",
+                    "train_windows_per_epoch", "epochs", "scale", "scope",
+                    "train_wall_s", "checkpoint", "miou_train", "iou_train",
+                    "miou_valid", "iou_valid")
+OVERFIT_KEYS = ("loader_s_per_seq", "train_wall_s", "epochs", "capacity",
+                "miou_train", "miou_valid")
 
 KERNELS = {
     "fused_simplex_pack": dict(
@@ -2516,6 +2550,279 @@ def utilities(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the accuracy experiments (train_lidar, overfit_lidar, the
+# occupancy probe) at the small scale
+# ---------------------------------------------------------------------------
+
+class ExperimentProbe:
+    """Stands in for the loop's ``StateCallback`` (a subclass of it) in
+    ``run_training`` and ``run_eval``: the host clock, the phase, its epoch,
+    the loss and the launch counts at every sequence and at every epoch's
+    start, and each epoch's valid IoUs inside ``run_training``.  A training
+    step's launches are the counts' change since the record before it (the
+    step before, or its epoch's start); its seconds run from the callback
+    of the step before in the same epoch to its own (the loader's wait, the
+    batch's copy, the step and the host reads)."""
+
+    def __init__(self, loop_mod):
+        from temporal_latticenet_tpu_torch.ops import _cuda
+        self.loop_mod, self.base = loop_mod, loop_mod.StateCallback
+        self.run_training = loop_mod.run_training
+        self.records, self.valid_epochs, self.training = [], [], False
+        probe = self
+
+        def record(kind, phase, loss=None):
+            probe.records.append(dict(
+                kind=kind, phase=phase.name, grad=phase.grad,
+                epoch=phase.epoch_nr, t=time.perf_counter(), loss=loss,
+                launches=_cuda.launch_counts()))
+
+        class Probe(self.base):
+            def after_forward_pass(self, *, phase=None, **kw):
+                record("seq", phase, float(kw["loss"]))
+                super().after_forward_pass(phase=phase, **kw)
+
+            def epoch_started(self, *, phase=None, **kw):
+                record("start", phase)
+                super().epoch_started(phase=phase, **kw)
+
+            def epoch_ended(self, *, phase=None, **kw):
+                if probe.training and not phase.grad:
+                    miou, iou = phase.scores.compute_stats()
+                    probe.valid_epochs.append(dict(
+                        epoch=phase.epoch_nr, miou=miou, iou=iou))
+                super().epoch_ended(phase=phase, **kw)
+
+        def training(*args, **kwargs):
+            probe.training = True
+            try:
+                return probe.run_training(*args, **kwargs)
+            finally:
+                probe.training = False
+
+        self.cls, self.training_fn = Probe, training
+
+    def __enter__(self):
+        self.loop_mod.StateCallback = self.cls
+        self.loop_mod.run_training = self.training_fn
+        return self
+
+    def __exit__(self, *exc):
+        self.loop_mod.StateCallback = self.base
+        self.loop_mod.run_training = self.run_training
+
+    def steps(self):
+        """Each training step with its launches and, but for an epoch's
+        first, its seconds."""
+        out = []
+        for prev, r in zip(self.records, self.records[1:]):
+            if r["kind"] != "seq" or not r["grad"]:
+                continue
+            same = prev["kind"] == "seq" and prev["grad"] \
+                and prev["epoch"] == r["epoch"]
+            out.append(dict(epoch=r["epoch"], loss=r["loss"],
+                            seconds=r["t"] - prev["t"] if same else None,
+                            launches={k: r["launches"][k] - prev["launches"][k]
+                                      for k in r["launches"]}))
+        return out
+
+
+def measured_run(fn, argv, cfg_path=None, windows: int = LOADER_WINDOWS):
+    """One experiment's ``main(argv)`` on the card under
+    :class:`ExperimentProbe`, with the launch counts set to 0 just before
+    it: its results, the seconds of its training steps (median and
+    quartiles), each epoch's mean training loss and valid IoUs, each
+    kernel's fewest and most launches in a step, the launches of the whole
+    run, its peak memory and, from ``cfg_path``, the loader's seconds per
+    train window (the first ``windows``, through the loader alone)."""
+    from temporal_latticenet_tpu_torch.config import (
+        cfgParser, model_config_from_cfg, nr_classes_from_cfg,
+        runtime_config_from_cfg)
+    from temporal_latticenet_tpu_torch.ops import _cuda
+    from temporal_latticenet_tpu_torch.train import loop
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    with ExperimentProbe(loop) as probe:
+        t0 = time.perf_counter()
+        results = fn(argv)
+        wall = time.perf_counter() - t0
+    launches_run = _cuda.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = probe.steps()
+    secs = [s["seconds"] for s in steps if s["seconds"] is not None]
+    epochs = sorted({s["epoch"] for s in steps})
+    out = dict(
+        argv=list(argv), wall_s=wall, steps=len(steps), epochs=epochs,
+        seconds_per_step=statistics.median(secs) if secs else None,
+        quartiles=quartiles(secs) if len(secs) > 1 else None,
+        epoch_losses={e: statistics.fmean(s["loss"] for s in steps
+                                          if s["epoch"] == e)
+                      for e in epochs},
+        losses_finite=all(math.isfinite(r["loss"]) for r in probe.records
+                          if r["kind"] == "seq"),
+        launches_per_step_min={k: min(s["launches"][k] for s in steps)
+                               for k in KERNELS} if steps else {},
+        launches_per_step_max={k: max(s["launches"][k] for s in steps)
+                               for k in KERNELS} if steps else {},
+        valid_epochs=probe.valid_epochs, launches_run=launches_run,
+        peak_mem_gb=peak_gb, results=results)
+    if cfg_path:
+        parser = cfgParser(cfg_path)
+        cfg = model_config_from_cfg(parser, nr_classes_from_cfg(parser))
+        ds = loop.make_datasets(parser, cfg, runtime_config_from_cfg(parser),
+                                splits=("train",))["train"]
+        n = min(windows, len(ds))
+        t0 = time.perf_counter()
+        for i in range(n):
+            ds[i]
+        out["loader_s_per_window"] = (time.perf_counter() - t0) / n
+    return out
+
+
+def check_experiment(name, r, keys, ckpt_dir=None, epochs=None):
+    """Phase 19's checks of one run: finite losses; K1-K4 launched in every
+    training step and K5 in none; the trained epochs; one checkpoint an
+    epoch; the results' keys and IoUs."""
+    if not r["losses_finite"]:
+        raise AssertionError(f"{name}: non-finite losses")
+    if not r["steps"]:
+        raise AssertionError(f"{name}: no training step")
+    idle = [k for k in FORWARD_KERNELS if r["launches_per_step_min"][k] == 0]
+    if idle:
+        raise AssertionError(f"{name}: steps without {idle}: "
+                             f"{r['launches_per_step_min']}")
+    if r["launches_run"]["sorted_segment_max_window"]:
+        raise AssertionError(f"{name}: K5 launched off the packed route")
+    if epochs is not None and r["epochs"] != list(epochs):
+        raise AssertionError(f"{name}: trained epochs {r['epochs']}, "
+                             f"not {list(epochs)}")
+    if ckpt_dir is not None:
+        found = sorted(int(m.group(1)) for f in os.listdir(ckpt_dir)
+                       if (m := re.search(r"_epoch(\d+)\.ckpt$", f)))
+        if found != list(range(max(epochs) + 1)):
+            raise AssertionError(f"{name}: epoch checkpoints {found}")
+    res = r["results"]
+    if sorted(res) != sorted(keys):
+        raise AssertionError(f"{name}: results keys {sorted(res)}")
+    ious = [v for k, v in res.items() if k.startswith("miou_")]
+    for k in ("iou_train", "iou_valid"):
+        ious += list(res.get(k, {}).values())
+    if not all(0.0 <= v <= 1.0 for v in ious):
+        raise AssertionError(f"{name}: IoUs outside [0, 1]: {res}")
+
+
+def experiment_summary(r) -> dict:
+    """What phase 19 reports of a run (the results without paths)."""
+    res = r["results"]
+    return dict({k: v for k, v in r.items() if k != "results"},
+                miou_train=res["miou_train"], miou_valid=res["miou_valid"],
+                iou_valid=res.get("iou_valid"),
+                loader_s_per_seq=res.get("loader_s_per_seq"))
+
+
+def lidar_experiments(dev):
+    """Phase 19: ``occupancy_worlds`` at the small scale; ``train_lidar``'s
+    three variants, a resume and the generalization flags; the overfit's
+    smoke run, its ``.label`` files scored again by ``evaluate_semantics``
+    (see the module docstring)."""
+    import shutil
+
+    from temporal_latticenet_tpu_torch import evaluate_semantics
+    from temporal_latticenet_tpu_torch.experiments import (occupancy_worlds,
+                                                           overfit_lidar,
+                                                           train_lidar)
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    out = {}
+    shutil.rmtree(EXP_DIR, ignore_errors=True)
+    try:
+        # the small scale's worst union counts stay under its capacities
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        occ = occupancy_worlds.main(EXP_OCCUPANCY)
+        occ.update(seconds=time.perf_counter() - t0,
+                   launches=_cuda.launch_counts())
+        out["occupancy_worlds"] = occ
+        full = [lvl for lvl, (w, c) in enumerate(zip(occ["worst"],
+                                                     occ["caps"])) if w >= c]
+        if full:
+            raise AssertionError(f"levels {full} saturated: worst "
+                                 f"{occ['worst']} of {occ['caps']}")
+        if not all(occ["launches"][k] for k in AUTOTUNE_KERNELS):
+            raise AssertionError(f"occupancy launches {occ['launches']}")
+
+        # the moving-class variants on one set of worlds, then a resume
+        m1 = os.path.join(EXP_DIR, "m1")
+        runs = [(v, ["--variant", v, "--moving", "1", "--epochs",
+                     str(EXP_EPOCHS)], range(EXP_EPOCHS), m1)
+                for v in train_lidar.VARIANTS]
+        runs.append(("temporal_resume",
+                     ["--variant", "temporal", "--moving", "1", "--resume",
+                      "--epochs", str(EXP_EPOCHS + 1)],
+                     range(EXP_EPOCHS, EXP_EPOCHS + 1), m1))
+        # the generalization run's flags
+        m0 = os.path.join(EXP_DIR, "m0")
+        runs.append(("generalization",
+                     ["--variant", "temporal", "--moving", "0", "--aug", "1",
+                      "--remat", "selective", "--epochs", str(EXP_EPOCHS)],
+                     range(EXP_EPOCHS), m0))
+        for name, flags, epochs, root in runs:
+            variant = flags[1]
+            argv = flags + EXP_SIZE + ["--root", root, "--out", os.path.join(
+                root, f"{name}.json")]
+            r = measured_run(train_lidar.main, argv,
+                             os.path.join(root, f"cfg_{variant}.cfg"))
+            check_experiment(name, r, TRAIN_LIDAR_KEYS,
+                             os.path.join(root, f"ckpt_{variant}"), epochs)
+            out[name] = experiment_summary(r)
+
+        # the overfit: the loss falls; evaluate_semantics on the written
+        # .label files gives run_eval's valid mIoU
+        root = os.path.join(EXP_DIR, "overfit")
+        r = measured_run(overfit_lidar.main,
+                         ["--smoke", "--epochs", str(OVERFIT_EPOCHS),
+                          "--root", root])
+        check_experiment("overfit", r, OVERFIT_KEYS,
+                         os.path.join(root, "ckpt"), range(OVERFIT_EPOCHS))
+        losses = r["epoch_losses"]
+        if not losses[OVERFIT_EPOCHS - 1] < losses[0]:
+            raise AssertionError(f"overfit: epoch losses {losses}")
+        miou, _ = evaluate_semantics.run(os.path.join(root, "data"),
+                                         os.path.join(root, "preds"),
+                                         split="valid")
+        r["evaluate_semantics_miou_valid"] = float(miou)
+        if abs(miou - r["results"]["miou_valid"]) > 1e-9:
+            raise AssertionError(f"evaluate_semantics mIoU {miou} vs "
+                                 f"run_eval's {r['results']['miou_valid']}")
+        out["overfit"] = experiment_summary(r)
+    finally:
+        shutil.rmtree(EXP_DIR, ignore_errors=True)
+    return out
+
+
+def log_experiments(exp, dline):
+    """Phase 19's lines of the log."""
+    occ = exp["occupancy_worlds"]
+    log(f"[experiments] occupancy_worlds worst {occ['worst']} of "
+        f"{occ['caps']} over {len(occ['windows'])} windows in "
+        f"{occ['seconds']:.1f} s")
+    for name, r in exp.items():
+        if name == "occupancy_worlds":
+            continue
+        loader = r.get("loader_s_per_window") or r["loader_s_per_seq"]
+        log(f"[experiments] {name}: {r['steps']} steps, "
+            f"{r['seconds_per_step']:.4f} s/step (quartiles "
+            f"{r['quartiles']}), loader {loader:.4f} s/window, peak "
+            f"{r['peak_mem_gb']:.2f} GB, launches a step "
+            f"{r['launches_per_step_min']} - {r['launches_per_step_max']}, "
+            f"epoch losses {json.dumps(r['epoch_losses'])}, mIoU train "
+            f"{r['miou_train']:.4f} valid {r['miou_valid']:.4f}, "
+            f"{r['wall_s']:.1f} s on {dline}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2726,6 +3033,10 @@ def main(argv=None) -> int:
                 f"{ut['trace_lacking']}); visualize_cli "
                 f"{ut['visualize_seconds']:.3f} s, {ut['visualize_files']} "
                 f"on {dline}")
+        torch.cuda.empty_cache()
+        exp = phase("experiments", lambda: lidar_experiments(dev))
+        if exp:
+            log_experiments(exp, dline)
 
     # launches: the training step (this slice's path, on the packed route);
     # the forwards' counts beside them
@@ -2778,6 +3089,10 @@ def main(argv=None) -> int:
                 "launches_rank_step") or {}).get(name, 0),
             launches_autotune=((report.get("utilities") or {}).get(
                 "autotune_launches") or {}).get(name, 0),
+            launches_experiments_step={
+                run: r["launches_per_step_min"].get(name, 0)
+                for run, r in (report.get("experiments") or {}).items()
+                if "launches_per_step_min" in r},
             cases=k.get("cases")))
     report["device_line"] = dline
     report["profiler_retries"] = PROFILER_RETRIES
