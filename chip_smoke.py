@@ -52,7 +52,9 @@ Phases, in order; any failure exits non-zero without the final line:
    step of every hand-written kernel and the device's busy share;
 9. the training step's gradients on the card and on the CPU at the reduced
    geometry, within the bf16 tolerance of the CPU test against the JAX
-   package;
+   package, on both routes of the pointnet max: the default one (K4, the
+   route the loop and the accuracy experiments train on) and the packed
+   one (K5 and K4);
 10. streaming (frame-at-a-time) serving at full width: the geometry of
     ``scripts/bench_streaming.py`` (phase 4's data and weights, capacities
     49152/24576/12288 without trims), through the plain path
@@ -1203,26 +1205,61 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(a @ b) / (na * nb)
 
 
-def train_card_vs_cpu(dev):
-    cpu_model, _, cpu_step = make_trainer(SMALL_RT, "cpu")
-    _, _, dev_step = make_trainer(SMALL_RT, dev, cpu_model.state_dict())
-    p = SMALL_RT["max_points"]
-    with packed_route():
-        loss_c, g_c = cpu_step.grad_step(train_batch(p, "cpu"))
-        loss_d, g_d = dev_step.grad_step(train_batch(p, dev))
+def grad_agreement(loss_c, g_c, loss_d, g_d) -> dict:
+    """``grad_step`` on the CPU (``loss_c``, ``g_c``) against the card's:
+    |d loss|, the smallest per-parameter gradient cosine and its parameter,
+    the global norms, the cosines under 0.999, and whether all three hold
+    phase 9's tolerances."""
     d_loss = abs(float(loss_c) - float(loss_d))
     cos = {k: _cosine(g_c[k], g_d[k].cpu()) for k in g_c}
     worst = min(cos, key=cos.get)
     n_c = math.sqrt(sum(float(g.double().pow(2).sum()) for g in g_c.values()))
     n_d = math.sqrt(sum(float(g.double().pow(2).sum()) for g in g_d.values()))
-    if d_loss > LOSS_ATOL or cos[worst] < GRAD_COSINE \
-            or abs(n_d - n_c) > NORM_RTOL * n_c:
-        raise AssertionError(f"gradients differ card vs CPU: loss {d_loss}, "
-                             f"cosine {cos[worst]} ({worst}), norms {n_d} vs "
-                             f"{n_c}")
-    return dict(points=p, loss_cpu=float(loss_c), loss_abs_diff=d_loss,
-                min_grad_cosine=cos[worst], min_cosine_param=worst,
-                grad_norm_cpu=n_c, grad_norm_card=n_d,
+    return dict(loss_cpu=float(loss_c), loss_card=float(loss_d),
+                loss_abs_diff=d_loss, min_grad_cosine=cos[worst],
+                min_cosine_param=worst, grad_norm_cpu=n_c, grad_norm_card=n_d,
+                cosines_below_0999={k: v for k, v in cos.items()
+                                    if v < 0.999},
+                within_tolerance=(d_loss <= LOSS_ATOL
+                                  and cos[worst] >= GRAD_COSINE
+                                  and abs(n_d - n_c) <= NORM_RTOL * n_c))
+
+
+def train_card_vs_cpu(dev):
+    """Phase 9: ``grad_step`` on the card against the CPU's (the kernels'
+    plain versions) from the same weights and batch, on both routes of the
+    pointnet max: the default one-scan route (K4, the loop's and the
+    experiments'), then the packed two-level route (K5 and K4).  Each
+    route is held to the same tolerances, and its card step must have
+    launched its route's kernels."""
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    cpu_model, _, cpu_step = make_trainer(SMALL_RT, "cpu")
+    _, _, dev_step = make_trainer(SMALL_RT, dev, cpu_model.state_dict())
+    p = SMALL_RT["max_points"]
+    out, errors = {}, []
+    for route, ctx in (("k4", contextlib.nullcontext), ("packed",
+                                                        packed_route)):
+        with ctx():
+            loss_c, g_c = cpu_step.grad_step(train_batch(p, "cpu"))
+            _cuda.reset_launch_counts()
+            loss_d, g_d = dev_step.grad_step(train_batch(p, dev))
+            launches = _cuda.launch_counts()
+        r = grad_agreement(loss_c, g_c, loss_d, g_d)
+        if not r["within_tolerance"]:
+            errors.append(f"{route}: gradients differ card vs CPU: loss "
+                          f"{r['loss_abs_diff']}, cosine "
+                          f"{r['min_grad_cosine']} ({r['min_cosine_param']}),"
+                          f" norms {r['grad_norm_card']} vs "
+                          f"{r['grad_norm_cpu']}")
+        k5 = launches["sorted_segment_max_window"]
+        if not launches["sorted_segment_max_u32"] or bool(k5) != (
+                route == "packed"):
+            errors.append(f"{route}: launches {launches}")
+        out[route] = dict(r, launches=launches)
+    if errors:
+        raise AssertionError("; ".join(errors))
+    return dict(points=p, routes=out,
                 tolerance=dict(loss=LOSS_ATOL, cosine=GRAD_COSINE,
                                norm_rtol=NORM_RTOL))
 
@@ -2902,7 +2939,13 @@ def main(argv=None) -> int:
                 f"{train['device_ms_per_step']:.2f} device ms per step, "
                 f"device busy {train['device_busy_share']:.3f}; "
                 f"hand-written {json.dumps(train['hand_written'])}")
-        phase("train_card_vs_cpu", lambda: train_card_vs_cpu(dev))
+        tcc = phase("train_card_vs_cpu", lambda: train_card_vs_cpu(dev))
+        for route, r in (tcc or {}).get("routes", {}).items():
+            log(f"[train_card_vs_cpu] {route} route: |d loss| "
+                f"{r['loss_abs_diff']:.3g}, smallest cosine "
+                f"{r['min_grad_cosine']:.6f} ({r['min_cosine_param']}), "
+                f"norms {r['grad_norm_card']:.6g} card / "
+                f"{r['grad_norm_cpu']:.6g} CPU; launches {r['launches']}")
         torch.cuda.empty_cache()
         stream = phase("streaming", lambda: streaming_flagship(dev, weights))
         if stream:

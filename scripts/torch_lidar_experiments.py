@@ -1,9 +1,10 @@
 """The port's accuracy experiments on the card, with their measurements.
 
     python scripts/torch_lidar_experiments.py --out-dir <dir> \\
-        [--variants temporal,static,accum] [--occupancy] \\
+        [--variants temporal,static,accum] [--occupancy] [--float32] \\
+        [--root <dir>] [--data <dir>] \\
         -- <train_lidar flags, e.g. --moving 1 --scale full --worlds 10
-            --scans 10 --epochs 16 --scope 1>
+            --scans 10 --epochs 16 --scope 1 [--seed N]>
 
 Runs ``experiments.train_lidar`` once per variant with the flags after
 ``--``, all variants on one set of worlds under ``--root`` (default
@@ -16,8 +17,12 @@ loader's seconds per window.  It writes ``<dir>/moving_<variant>_<scale>.json``
 moving actors the comparison
 table (``experiments.moving_table``).  ``--occupancy`` first probes the
 worlds' worst-case union counts (``experiments.occupancy_worlds``, every
-window) against the scale's capacities.  The card's name and power limit
-are in every measurement file.  Needs CUDA.
+window) against the scale's capacities.  ``--float32`` adds
+``compute_dtype: "float32"`` to the cfg's ``runtime`` section (the per-frame
+pointnet route, no K4).  ``--data`` links ``<root>/data`` to worlds already
+written there, so that runs side by side (other seeds, other roots) share
+one set of worlds.  The card's name and power limit are in every
+measurement file.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", default="temporal,static,accum")
     ap.add_argument("--root", default="")
     ap.add_argument("--occupancy", action="store_true")
+    ap.add_argument("--float32", action="store_true")
+    ap.add_argument("--data", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_lidar_experiments: needs CUDA", file=sys.stderr)
@@ -64,6 +71,15 @@ def main(argv=None) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     root = args.root or os.path.join(
         ROOT, "build", f"lidar_{flags.scale}_m{flags.moving}")
+    if args.float32:
+        train_lidar.CFG_TEMPLATE = train_lidar.CFG_TEMPLATE.replace(
+            'remat_mode: "{remat}"',
+            'remat_mode: "{remat}"\n    compute_dtype: "float32"')
+    if args.data:
+        os.makedirs(root, exist_ok=True)
+        link = os.path.join(root, "data")
+        if not os.path.lexists(link):
+            os.symlink(os.path.abspath(args.data), link)
     dline = chip_smoke.device_line()
     print(dline, flush=True)
     print(json.dumps(_cuda.build()), flush=True)
@@ -87,7 +103,7 @@ def main(argv=None) -> int:
             train_lidar.main,
             passthrough + ["--variant", v, "--root", root, "--out", out],
             os.path.join(root, f"cfg_{v}.cfg"))
-        run["device"] = dline
+        run.update(device=dline, float32=args.float32)
         with open(os.path.join(args.out_dir, f"measure_{v}.json"), "w") as f:
             json.dump(run, f, indent=1)
         print(f"[{v}] {run['steps']} steps, {run['seconds_per_step']:.4f} "

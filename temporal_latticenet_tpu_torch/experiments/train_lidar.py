@@ -344,6 +344,9 @@ def parse_args(argv=None):
                          "this run's checkpoint directory")
     ap.add_argument("--fresh-data", action="store_true",
                     help="regenerate the on-disk worlds even if present")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the initial weights and the shuffle (0: "
+                         "the JAX script's fixed draw)")
     return ap.parse_args(argv)
 
 
@@ -383,7 +386,7 @@ def main(argv=None) -> dict:
             start_epoch=start_epoch))
 
     t0 = time.perf_counter()
-    loop.run_training(cfg_path, device=device)
+    loop.run_training(cfg_path, device=device, seed=args.seed)
     train_s = time.perf_counter() - t0
     print(f"training wall {train_s:.0f}s", flush=True)
 

@@ -148,14 +148,15 @@ def _setup(parser: cfgParser, device):
 
 
 def run_training(config_file: str, max_steps: int | None = None,
-                 datasets=None, device=None, mesh=None):
+                 datasets=None, device=None, mesh=None, seed: int = 0):
     """Train from ``config_file``; returns ``(model, state)``.
 
     ``max_steps`` stops after that many steps (train and valid counted
     together, as in the JAX loop); ``datasets`` ({"train", "valid"})
     replaces the cfg's.  With a ``parallel.mesh.Mesh`` the model lives on
     the rank's device (``device`` is not used) and the train phase is split
-    over the ranks."""
+    over the ranks.  ``seed`` draws the initial weights and the epochs'
+    shuffle; 0 is the JAX loop's fixed seed."""
     parser = cfgParser(config_file)
     train_cfg = parser.get_train_vars()
     loader_cfg = parser.get_loader_vars()
@@ -172,7 +173,7 @@ def run_training(config_file: str, max_steps: int | None = None,
 
     model, state = engine.create_train_state(
         cfg, rt, lr=train_cfg["lr"], weight_decay=train_cfg["weight_decay"],
-        device=dev)
+        seed=seed, device=dev)
     train_step, eval_step = engine.make_train_step(
         model, cfg, rt, ignore_index,
         # per-parameter gradient norms (wandb.watch's analog); only paid
@@ -222,7 +223,7 @@ def run_training(config_file: str, max_steps: int | None = None,
     scheduler_kind = train_cfg.get("scheduler", "CosineAnnealingWarmRestarts")
     plateau = optim.ReduceLROnPlateau()
     restart_epochs = float(train_cfg.get("restart_epochs", 3))
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     steps_done = 0
 
     with trace:

@@ -23,6 +23,8 @@ from temporal_latticenet_tpu_torch.ops import lattice_ops as lo
 from temporal_latticenet_tpu_torch.ops import seq_lattice as sl
 from temporal_latticenet_tpu_torch.ops.segment import sorted_packed_max
 
+from .test_torch_configs import _one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 CAPS = (4096, 2048, 1024)
 
@@ -45,10 +47,21 @@ def _jlink(link):
         tail_live=j(link.tail_live))
 
 
+def _jax_vjp(jfn, primals, cts):
+    """JAX's forward of ``jfn`` at ``primals`` and the primals' cotangents
+    for ``cts``, as one jitted graph: run op by op, each of their operations
+    compiled alone, which took most of this file's time on the CPU.  (The
+    packed max below stays op by op: its bit-equal winner bary is eager
+    JAX's, and XLA's fusion moves a last bit of it.)"""
+    def f(p, c):
+        y, vjp = jax.vjp(jfn, *p)
+        return y, vjp(c)
+    return jax.jit(f)(primals, cts)
+
+
 def _vjp_both(jfn, tfn, x, ct):
     """(forward, input cotangent) of the JAX and the port function."""
-    jy, vjp = jax.vjp(jfn, jnp.asarray(x))
-    (jg,) = vjp(jnp.asarray(ct))
+    jy, (jg,) = _jax_vjp(jfn, (jnp.asarray(x),), jnp.asarray(ct))
     xt = torch.tensor(x, requires_grad=True)
     ty = tfn(xt)
     ty.backward(torch.as_tensor(ct))

@@ -71,6 +71,19 @@ RT = dict(max_points=96, capacity_level0=1024, capacity_decay=0.5,
           min_capacity=256, sigma=0.6, remat_mode="none")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for a test file's small tensors: beside the
+    suite's other workers an OpenMP team of eight waits on its slowest
+    thread at every operation (a tiny training step took 13.7 s on eight
+    threads, 0.35 s on one).  Other files import it; being autouse and
+    module-scoped, it then pins each of them alike."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _clouds(t, p, n, spread, seed):
     """``t`` frames of ``n`` points (of ``p`` padded) drifting by 0.3 a
     frame, with values and labels in [1, 5)."""

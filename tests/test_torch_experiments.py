@@ -44,8 +44,8 @@ from temporal_latticenet_tpu_torch.ops import vertex_table as tvt
 from temporal_latticenet_tpu_torch.train import engine
 
 from .test_torch_configs import (F32_ATOL, TINY, _agree_bf16, _clouds,
-                                 _jax_forward, _jparams, _port,
-                                 _same_structure)
+                                 _jax_forward, _jparams,
+                                 _one_torch_thread, _port, _same_structure)
 from .test_torch_per_frame_route import RT_TRIM
 from .test_torch_seq_lattice import _compare_lattice, _frames
 
@@ -55,17 +55,6 @@ WIDTH_CHANGING = ("pointnet_no_elevate", "pointnet_no_elevate_no_local_mean",
 FLAGSHIP = ("gru", "gru", "aflow", "gru")
 EARLY_NONE = ("none", "gru", "aflow", "gru")
 MAX_NEW = 512
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's tiny tensors: beside the suite's
-    other workers, a team of eight threads waits on its slowest one at
-    every operation (``test_torch_loop.py`` pins its loops alike)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def experiment_kw(experiment: str) -> dict:

@@ -39,6 +39,8 @@ from temporal_latticenet_tpu_torch.train.convert import params_from_jax
 from temporal_latticenet_tpu_torch.train.engine import (
     make_sequence_forward, make_streaming_inference_batched)
 
+from .test_torch_configs import _one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 P = 1024
 RT = dict(max_points=P, capacity_level0=8192, capacity_decay=0.5,

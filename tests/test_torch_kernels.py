@@ -26,6 +26,8 @@ from temporal_latticenet_tpu_torch.ops import seg_scan as ss
 from temporal_latticenet_tpu_torch.ops import segment as tseg
 from temporal_latticenet_tpu_torch.ops import seq_lattice as tsl
 
+from .test_torch_configs import _one_torch_thread  # noqa: F401
+
 
 def _runs(rng, q, p=0.05):
     heads = rng.random(q) < p

@@ -28,6 +28,8 @@ from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
 from temporal_latticenet_tpu_torch.train import engine, optim
 from temporal_latticenet_tpu_torch.train.convert import params_from_jax
 
+from .test_torch_configs import _one_torch_thread  # noqa: F401
+
 T = 8
 BF16 = 2e-2          # tests/test_torch_streaming.py:53
 STREAM_ATOL = 2e-3   # the JAX test's bound, streaming vs offline
@@ -64,7 +66,10 @@ def window():
         k, jnp.asarray(pos[0]), jnp.asarray(val[0]), jnp.asarray(mask[0]),
         j_init_state(jcfg, jrt), final=True))(jax.random.PRNGKey(0))
     params = {"params": params["params"]}
-    fwd = jengine.make_sequence_forward(jmodel, jcfg, jrt, precompute=True)
+    # one jitted graph: run op by op, the same forward compiled each of
+    # its operations alone and took 105 s of the file's 110 on the CPU
+    fwd = jax.jit(jengine.make_sequence_forward(jmodel, jcfg, jrt,
+                                                precompute=True))
     logp, _, aux = fwd(params, jnp.asarray(pos), jnp.asarray(val),
                        jnp.asarray(mask))
     return dict(pos=pos, val=val, mask=mask, jparams=params["params"],

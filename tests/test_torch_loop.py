@@ -11,8 +11,14 @@ forward alone), the second's within 1e-3 (after one AdamW step, whose
 normalised update magnifies float32 differences in small gradients), the
 valid mIoU equal and the predictions equal except where the port's top two
 log-probabilities lie within 1e-4.  Measured: 2.4e-7 and 7.2e-7, the valid
-loss 2.0e-6 apart, no prediction differs.  Nearly all of its time is the
-JAX loop's compile of its train and eval steps."""
+loss 2.0e-6 apart, no prediction differs.  A second runs both for three
+whole epochs (9 shuffled steps through the cosine schedule, 9 valid
+sequences): every loss within 1e-3, the float32 reordering grown over 9
+AdamW steps.  Measured: the training losses 0 to 1.6e-4 apart (2.4e-5 at
+step 7, 1.6e-4 at step 9), the valid losses 2.4e-6 to 4.1e-4, no
+prediction differs, both valid mIoUs 0.14882444205752476.  Nearly all of
+their time is the JAX loop's compile of its train and eval steps (the
+second reads the first's from the compile cache)."""
 
 import os
 import subprocess
@@ -37,22 +43,13 @@ from temporal_latticenet_tpu_torch.train import loop as tloop
 from temporal_latticenet_tpu_torch.train.callbacks import Callback
 from tests.test_loop import _patch_lengths, tiny_world  # noqa: F401
 from tests.test_parislille import PL_CFG, _write_pl_cloud
+from tests.test_torch_configs import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP1_ATOL = 1e-4
 STEP2_ATOL = 1e-3
+EPOCHS_ATOL = 1e-3
 TIE = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file: its tensors are tiny, and on a
-    CPU busy with other processes an OpenMP team of eight waits on its
-    slowest, descheduled thread at every operation (ten times slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _configs(cfg_path):
@@ -167,6 +164,45 @@ def test_resume_from_epoch_checkpoint(tiny_world):  # noqa: F811
                      fstate.optimizer) == state0.step
     for a, b in zip(model0.state_dict().values(), fresh.state_dict().values()):
         assert torch.equal(a, b)
+
+
+def test_run_training_seed(tiny_world, monkeypatch):  # noqa: F811
+    """``run_training`` without a seed is ``seed=0`` bit for bit (the JAX
+    loop's fixed draw of weights and shuffle); another seed draws other
+    initial weights and another epoch order."""
+    tmp_path, cfg_path = tiny_world
+    sh = _edit(tmp_path, cfg_path, "shuffle.cfg",
+               ("shuffle: false", "shuffle: true"),
+               ("training_epochs: 1", "training_epochs: 2"))
+    seen = []
+
+    class Rec(tloop.StateCallback):
+        def after_forward_pass(self, *, phase=None, **kw):
+            if phase.grad:
+                seen[-1].append((float(kw["loss"]), kw["target"].tobytes()))
+            super().after_forward_pass(phase=phase, **kw)
+
+    monkeypatch.setattr(tloop, "StateCallback", Rec)
+    seeds, create = [], engine.create_train_state
+
+    def creating(*a, **kw):
+        seeds.append(kw["seed"])
+        return create(*a, **kw)
+
+    monkeypatch.setattr(engine, "create_train_state", creating)
+    runs = {}
+    for name, kw in (("default", {}), ("zero", {"seed": 0}),
+                     ("one", {"seed": 1})):
+        seen.append([])
+        model, state = tloop.run_training(sh, datasets=_datasets(sh),
+                                          device="cpu", **kw)
+        runs[name] = (seen[-1], model.state_dict())
+    (steps_d, sd_d), (steps_0, sd_0), (steps_1, sd_1) = runs.values()
+    assert seeds == [0, 0, 1]
+    assert len(steps_d) == 6 and steps_d == steps_0
+    assert all(torch.equal(sd_d[k], sd_0[k]) for k in sd_d)
+    assert [t for _, t in steps_1] != [t for _, t in steps_0]   # the order
+    assert not all(torch.equal(sd_1[k], sd_0[k]) for k in sd_0)
 
 
 def test_run_training_accumulate_clouds(tiny_world):  # noqa: F811
@@ -387,17 +423,19 @@ def _seeded_datasets(mod, cfg_path, seed=7):
         for s in ("train", "valid")})
 
 
-def test_loop_matches_jax_float32(tiny_world, monkeypatch):  # noqa: F811
-    """Both loops from the same ``.pt`` on the same seeded data, two steps
-    and the valid sequence: losses, valid mIoU and predictions agree."""
-    tmp_path, cfg_path = tiny_world
+def _cross_check_cfgs(tmp_path, cfg_path, *edits):
+    """The port's and the JAX loop's float32 cfgs (augmentation on, point
+    shuffle on, ``edits`` on top), loading the same weights: the JAX
+    model's seed-0 init as a reference-schema ``.pt`` for the port and the
+    same file carried into a JAX ``.ckpt`` (the JAX loop's ``run_training``
+    hands the converter the wrong template for a ``.pt``)."""
     tf = ("transformer: { random_translation_xz_magnitude: 2.0 "
           "rotation_y_max_angle: 10.0 random_mirror_x: true "
           "random_mirror_z: true random_rotation_90_degrees_y: true }")
     common = (("min_capacity: 256", 'min_capacity: 256\n    compute_dtype: '
                '"float32"'), ("shuffle_points: false", "shuffle_points: true"),
               ("transformer: { }", tf),
-              ("load_checkpoint: false", "load_checkpoint: true"))
+              ("load_checkpoint: false", "load_checkpoint: true")) + edits
     paths = {}
     for side, model_file in (("port", "init.pt"), ("jax", "init.ckpt")):
         paths[side] = _edit(
@@ -406,10 +444,6 @@ def test_loop_matches_jax_float32(tiny_world, monkeypatch):  # noqa: F811
              f'load_checkpoint_model: "{model_file}"\n}}'),
             (str(tmp_path / "ckpts"), str(tmp_path / side)))
 
-    # the JAX model's seed-0 weights as a reference-schema .pt; the JAX loop
-    # reads the same file through its own converter (its run_training hands
-    # the converter the wrong template for a .pt, so the weights go in as
-    # the package's .ckpt)
     jp = jconfig.cfgParser(paths["jax"])
     jcfg = jconfig.model_config_from_cfg(jp, jconfig.nr_classes_from_cfg(jp))
     jrt = jconfig.runtime_config_from_cfg(jp)
@@ -424,16 +458,40 @@ def test_loop_matches_jax_float32(tiny_world, monkeypatch):  # noqa: F811
                                    inner)
     jckpt.save(str(tmp_path / "jax" / "init.ckpt"), {"params": params},
                jstate.opt_state, 0)
+    return paths
 
+
+def _both_loops(paths, monkeypatch, max_steps=None):
+    """Both loops on the same seeded datasets; their recorders and the
+    port's model."""
     rec, jrec = _Recorder(tloop.StateCallback), _Recorder(jloop.StateCallback)
     monkeypatch.setattr(tloop, "StateCallback", rec.cls)
     monkeypatch.setattr(jloop, "StateCallback", jrec.cls)
-    model, _ = tloop.run_training(paths["port"], max_steps=2,
+    model, _ = tloop.run_training(paths["port"], max_steps=max_steps,
                                   datasets=_seeded_datasets(kitti,
                                                             paths["port"]),
                                   device="cpu")
-    jloop.run_training(paths["jax"], max_steps=2,
+    jloop.run_training(paths["jax"], max_steps=max_steps,
                        datasets=_seeded_datasets(jkitti, paths["jax"]))
+    return rec, jrec, model
+
+
+def _top_two_gap(model, cfg_path, frames):
+    """The port's top-two log-probability gap at each point of the last
+    frame."""
+    parser, cfg, rt = _configs(cfg_path)
+    _, eval_step = engine.make_train_step(model, cfg, rt)
+    logp, _ = eval_step(engine.SeqBatch.stack([frames], "cpu"))
+    top2 = torch.topk(logp[0][torch.as_tensor(frames[-1].mask)], 2).values
+    return (top2[:, 0] - top2[:, 1]).numpy()
+
+
+def test_loop_matches_jax_float32(tiny_world, monkeypatch):  # noqa: F811
+    """Both loops from the same ``.pt`` on the same seeded data, two steps
+    and the valid sequence: losses, valid mIoU and predictions agree."""
+    tmp_path, cfg_path = tiny_world
+    paths = _cross_check_cfgs(tmp_path, cfg_path)
+    rec, jrec, model = _both_loops(paths, monkeypatch, max_steps=2)
 
     (l1, l2), (j1, j2) = rec.losses("train"), jrec.losses("train")
     assert abs(l1 - j1) <= STEP1_ATOL, (l1, j1)
@@ -441,14 +499,39 @@ def test_loop_matches_jax_float32(tiny_world, monkeypatch):  # noqa: F811
     (pred,), (jpred,) = rec.preds("valid"), jrec.preds("valid")
     differ = pred != jpred
     if differ.any():
-        # the port's top-two gap at the points that differ
-        parser, cfg, rt = _configs(paths["port"])
         frames = _seeded_datasets(kitti, paths["port"])["valid"][0]
-        _, eval_step = engine.make_train_step(model, cfg, rt)
-        logp, _ = eval_step(engine.SeqBatch.stack([frames], "cpu"))
-        top2 = torch.topk(logp[0][torch.as_tensor(frames[-1].mask)], 2).values
-        gap = (top2[:, 0] - top2[:, 1]).numpy()
+        gap = _top_two_gap(model, paths["port"], frames)
         assert (gap[differ] <= TIE).all(), gap[differ]
     else:
         assert rec.miou["valid"] == jrec.miou["valid"]
     assert abs(rec.losses("valid")[0] - jrec.losses("valid")[0]) <= STEP2_ATOL
+
+
+def test_loop_matches_jax_float32_over_epochs(tiny_world, monkeypatch):  # noqa: F811
+    """Both loops from the same ``.pt`` for three whole epochs (9 steps
+    over the shuffled train windows, the cosine schedule moving, and each
+    epoch's valid phase of 3 sequences): every training step's loss, every
+    valid sequence's loss and the last valid phase's predictions."""
+    tmp_path, cfg_path = tiny_world
+    paths = _cross_check_cfgs(tmp_path, cfg_path,
+                              ("training_epochs: 1", "training_epochs: 3"),
+                              ("shuffle: false", "shuffle: true"))
+    rec, jrec, model = _both_loops(paths, monkeypatch)
+
+    losses, jlosses = rec.losses("train"), jrec.losses("train")
+    assert len(losses) == len(jlosses) == 9
+    diffs = np.abs(np.subtract(losses, jlosses))
+    assert (diffs <= EPOCHS_ATOL).all(), diffs
+    valid, jvalid = rec.losses("valid"), jrec.losses("valid")
+    assert len(valid) == len(jvalid) == 9
+    assert (np.abs(np.subtract(valid, jvalid)) <= EPOCHS_ATOL).all()
+    # the last valid phase's windows: the seeded loader's third draw of
+    # each (its generator moves with every item: the point shuffle)
+    ds = _seeded_datasets(kitti, paths["port"])["valid"]
+    last = [[ds[i] for i in range(3)] for _ in range(3)][-1]
+    for frames, pred, jpred in zip(last, rec.preds("valid")[-3:],
+                                   jrec.preds("valid")[-3:]):
+        differ = pred != jpred
+        if differ.any():
+            gap = _top_two_gap(model, paths["port"], frames)
+            assert (gap[differ] <= TIE).all(), gap[differ]

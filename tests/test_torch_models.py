@@ -33,6 +33,8 @@ from temporal_latticenet_tpu_torch.ops import lattice_ops as tlo
 from temporal_latticenet_tpu_torch.ops import seq_lattice as tsl
 from temporal_latticenet_tpu_torch.train.convert import params_from_jax
 
+from .test_torch_configs import _one_torch_thread  # noqa: F401
+
 SIGMA = 0.5
 CAPS = (8192, 6144, 4096)
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -98,6 +100,13 @@ def _values(tl, level, c, seed, t=3):
     return x, count
 
 
+def _apply(module, variables, *args, **kw):
+    """``module.apply`` as one jitted graph: run op by op, each of its
+    operations compiled alone, which took most of this file's time on the
+    CPU."""
+    return jax.jit(lambda v, *a: module.apply(v, *a, **kw))(variables, *args)
+
+
 def _close(got, want, tol):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
 
@@ -108,8 +117,9 @@ def test_resnet_block(jparams, lattice, dtype, tol):
     top = "resnet_blocks_per_down_lvl_list_0_1"
     x, count = _values(tl, 0, 64, 1)
     jn, tn = _nbr(tl, 0)
-    want = jb.ResnetBlock(64, (False, False), dtype=dtype).apply(
-        {"params": jparams[top]}, jnp.asarray(x), jn, jnp.int32(count))
+    want = _apply(jb.ResnetBlock(64, (False, False), dtype=dtype),
+                  {"params": jparams[top]}, jnp.asarray(x), jn,
+                  jnp.int32(count))
     mod = _load(tb.ResnetBlock(64, (False, False), dtype), jparams, top,
                 "resnet_blocks_per_down_lvl_list.0.1.")
     _close(mod(torch.from_numpy(x), tn, torch.tensor(count)), want, tol)
@@ -120,8 +130,9 @@ def test_bottleneck_block(jparams, lattice):
     top = "resnet_blocks_bottleneck_1"
     x, count = _values(tl, 2, 256, 2)
     jn, tn = _nbr(tl, 2)
-    want = jb.BottleneckBlock(256, (False,) * 3, dtype="float32").apply(
-        {"params": jparams[top]}, jnp.asarray(x), jn, jnp.int32(count))
+    want = _apply(jb.BottleneckBlock(256, (False,) * 3, dtype="float32"),
+                  {"params": jparams[top]}, jnp.asarray(x), jn,
+                  jnp.int32(count))
     mod = _load(tb.BottleneckBlock(256, (False,) * 3), jparams, top,
                 "resnet_blocks_bottleneck.1.")
     _close(mod(torch.from_numpy(x), tn, torch.tensor(count)), want, F32)
@@ -134,9 +145,9 @@ def test_coarsen_and_finefy(jparams, lattice):
     c1 = int(tl.levels[1].counts[3])
     jlink, tlink = _link(tl, 0)
     jn1, tn1 = _nbr(tl, 1)
-    want = jb.GnReluCoarsen(128, dtype="float32").apply(
-        {"params": jparams["coarsens_list_0"]}, jnp.asarray(x), jnp.int32(c0),
-        jlink, jn1, jnp.int32(c1))
+    want = _apply(jb.GnReluCoarsen(128, dtype="float32"),
+                  {"params": jparams["coarsens_list_0"]}, jnp.asarray(x),
+                  jnp.int32(c0), jlink, jn1, jnp.int32(c1))
     mod = _load(tb.GnReluCoarsen(64, 128), jparams, "coarsens_list_0",
                 "coarsens_list.0.")
     _close(mod(torch.from_numpy(x), torch.tensor(c0), tlink, tn1,
@@ -145,9 +156,9 @@ def test_coarsen_and_finefy(jparams, lattice):
     x2, c2 = _values(tl, 2, 256, 4)
     jlink1, tlink1 = _link(tl, 1)
     jn2, tn2 = _nbr(tl, 2)
-    want = jb.GnReluFinefy(128, dtype="float32").apply(
-        {"params": jparams["finefy_list_0"]}, jnp.asarray(x2), jnp.int32(c2),
-        jn2, jlink1, jnp.int32(c1))
+    want = _apply(jb.GnReluFinefy(128, dtype="float32"),
+                  {"params": jparams["finefy_list_0"]}, jnp.asarray(x2),
+                  jnp.int32(c2), jn2, jlink1, jnp.int32(c1))
     mod = _load(tb.GnReluFinefy(256, 128), jparams, "finefy_list_0",
                 "finefy_list.0.")
     _close(mod(torch.from_numpy(x2), torch.tensor(c2), tn2, tlink1,
@@ -163,16 +174,16 @@ def test_deform_slice(jparams, lattice):
     rng = np.random.default_rng(6)
     params["deform_kernel"] = rng.standard_normal(
         params["deform_kernel"].shape).astype(np.float32) * 0.01
-    want = jb.DeformSlice(26).apply(
-        {"params": params}, jnp.asarray(x),
-        jnp.asarray(pv.numpy().astype(np.int32)), jnp.asarray(pb.numpy()))
+    want = _apply(jb.DeformSlice(26), {"params": params}, jnp.asarray(x),
+                  jnp.asarray(pv.numpy().astype(np.int32)),
+                  jnp.asarray(pb.numpy()))
     mod = _load(tb.DeformSlice(192, 26), {"slice_fast_cuda": params},
                 "slice_fast_cuda", "slice_fast_cuda.")
     _close(mod(torch.from_numpy(x), pv, pb), want, F32)
     # the plain barycentric slice-back
-    want = jlo.slice_gather(jnp.asarray(x),
-                            jnp.asarray(pv.numpy().astype(np.int32)),
-                            jnp.asarray(pb.numpy()))
+    want = jax.jit(jlo.slice_gather)(
+        jnp.asarray(x), jnp.asarray(pv.numpy().astype(np.int32)),
+        jnp.asarray(pb.numpy()))
     _close(tlo.slice_gather(torch.from_numpy(x), pv, pb), want, F32)
 
 
@@ -182,9 +193,9 @@ def test_gru_fusion(jparams, lattice, is_first):
     top = "recurrent_fusion_modules_0"
     lv, count = _values(tl, 0, 64, 7)
     h, prev = _values(tl, 0, 64, 8, t=2)
-    want, _ = jf.GRUFusion(64).apply(
-        {"params": jparams[top]}, jnp.asarray(lv), jnp.asarray(h),
-        jnp.int32(prev), jnp.int32(count), jnp.asarray(is_first))
+    want, _ = _apply(jf.GRUFusion(64), {"params": jparams[top]},
+                     jnp.asarray(lv), jnp.asarray(h), jnp.int32(prev),
+                     jnp.int32(count), jnp.asarray(is_first))
     mod = _load(tf.GRUFusion(64, 64), jparams, top,
                 "recurrent_fusion_modules.0.")
     got, _ = mod(torch.from_numpy(lv), torch.from_numpy(h), torch.tensor(prev),
@@ -198,10 +209,10 @@ def test_aflow_fusion(jparams, lattice):
     lv, count = _values(tl, 2, 256, 9)
     h, prev = _values(tl, 2, 256, 10, t=2)
     jn, tn = _nbr(tl, 2)
-    want, _ = jf.AFlowFusion(256).apply(
-        {"params": jparams[top]}, jnp.asarray(lv), jnp.asarray(h),
-        jnp.int32(prev), jnp.int32(count), jnp.asarray(False), jn,
-        mutable=["aux"])[0]
+    want, _ = _apply(jf.AFlowFusion(256), {"params": jparams[top]},
+                     jnp.asarray(lv), jnp.asarray(h), jnp.int32(prev),
+                     jnp.int32(count), jnp.asarray(False), jn,
+                     mutable=["aux"])[0]
     mod = _load(tf.AFlowFusion(256), jparams, top,
                 "recurrent_fusion_modules.1.")
     got, _ = mod(torch.from_numpy(lv), torch.from_numpy(h), torch.tensor(prev),
@@ -216,10 +227,10 @@ def test_pointnet_reduce_sorted_and_fuse(jparams, lattice):
         p_, m_, SIGMA, CAPS, 2, pn_values=v_, want_row_rel=False))(
         jnp.asarray(pos), jnp.asarray(mask), jnp.asarray(val))
     jpn = JPointNet(cfg)
-    want = jpn.apply({"params": jparams["point_net_seq"]},
-                     None, None, None, None, None, None, None,
-                     sorted_batch=(jl.sorted_pn, jnp.asarray(val),
-                                   jl.row_bary, jl.nr_points))
+    want = _apply(jpn, {"params": jparams["point_net_seq"]},
+                  None, None, None, None, None, None, None,
+                  sorted_batch=(jl.sorted_pn, jnp.asarray(val),
+                                jl.row_bary, jl.nr_points))
     mod = _load(PointNetSeq(ModelConfig()), jparams, "point_net_seq",
                 "point_net_seq.")
     # the reduced tensor carries the MLP's gradient (straight-through max)
@@ -236,9 +247,9 @@ def test_pointnet_reduce_sorted_and_fuse(jparams, lattice):
     c1, c0 = int(tl.levels[0].counts[1]), int(tl.levels[0].counts[0])
     h = np.array(want[0])
     red = np.array(want[1])
-    jout, _ = jpn.apply({"params": jparams["point_net_seq"]}, None, None, jn,
-                        jnp.int32(c1), jnp.asarray(h), jnp.int32(c0),
-                        jnp.asarray(False), pre_reduced=jnp.asarray(red))
+    jout, _ = _apply(jpn, {"params": jparams["point_net_seq"]}, None, None,
+                     jn, jnp.int32(c1), jnp.asarray(h), jnp.int32(c0),
+                     jnp.asarray(False), pre_reduced=jnp.asarray(red))
     tout, _ = mod.fuse_and_conv(torch.from_numpy(red), tn, torch.tensor(c1),
                                 torch.from_numpy(h), torch.tensor(c0), False)
     _close(tout, jout, BF16)

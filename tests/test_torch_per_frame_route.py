@@ -24,9 +24,9 @@ from temporal_latticenet_tpu_torch.models.blocks import DeformSlice
 from temporal_latticenet_tpu_torch.ops import segment as tseg
 from temporal_latticenet_tpu_torch.train import engine
 
-from .test_torch_configs import (F32_ATOL, TINY, _agree_bf16, _clouds,
+from .test_torch_configs import (F32_ATOL, TINY, _agree_bf16, _clouds,  # noqa: F401
                                  _grad_step_matches, _jax_forward, _jparams,
-                                 _port, _same_structure)
+                                 _one_torch_thread, _port, _same_structure)
 
 # denser clouds than the other configurations' (fewer vertices than rows,
 # so the bary quirk reads row 0's weight), with both trims active

@@ -30,6 +30,8 @@ from temporal_latticenet_tpu_torch.ops import permutohedral as tpm
 from temporal_latticenet_tpu_torch.ops import seq_lattice as tsl
 from temporal_latticenet_tpu_torch.ops.fused_simplex import fused_simplex_pack
 
+from .test_torch_configs import _one_torch_thread  # noqa: F401
+
 # sigma 0.5: a power-of-two divisor, so jitted XLA (which may turn the
 # division into a multiplication by the reciprocal) and the port scale the
 # points bit-identically; at 0.6 the weights would differ in the last bits
@@ -117,7 +119,9 @@ def test_sequence_lattice_fields_equal(t, with_pn, caps, nbr_caps):
 
 @pytest.mark.parametrize("first_is_head", [True, False])
 def test_scan_helpers_equal(first_is_head):
-    """The union's scan helpers (K2 ``sum`` and ``first`` underneath)."""
+    """The union's scan helpers (K2 ``sum`` and ``first`` underneath); JAX's
+    jitted, as every JAX function in this file: op by op, each operation
+    compiles alone."""
     rng = np.random.default_rng(5)
     q = 3000
     head = rng.random(q) < 0.05
@@ -127,13 +131,13 @@ def test_scan_helpers_equal(first_is_head):
     jh, th = jnp.asarray(head), torch.from_numpy(head)
     np.testing.assert_array_equal(
         tsl._blocked_cumsum(torch.from_numpy(ival)).numpy(),
-        np.asarray(jsl._blocked_cumsum(jnp.asarray(ival))))
+        np.asarray(jax.jit(jsl._blocked_cumsum)(jnp.asarray(ival))))
     np.testing.assert_array_equal(
         tsl._seg_copy_head(th, torch.from_numpy(ival)).numpy(),
-        np.asarray(jsl._seg_copy_head(jh, jnp.asarray(ival))))
+        np.asarray(jax.jit(jsl._seg_copy_head)(jh, jnp.asarray(ival))))
     np.testing.assert_allclose(
         tsl._seg_sum_rows(th, torch.from_numpy(fval)).numpy(),
-        np.asarray(jsl._seg_sum_rows(jh, jnp.asarray(fval))),
+        np.asarray(jax.jit(jsl._seg_sum_rows)(jh, jnp.asarray(fval))),
         rtol=1e-5, atol=1e-5)
 
 
@@ -165,5 +169,6 @@ def test_no_mean_union_and_trim_equal():
     tl = tsl.build_sequence_lattice(torch.from_numpy(pos),
                                     torch.from_numpy(mask), SIGMA, CAPS, 2)
     for trim in ((6144, 4608, 3072), NBR_CAPS):
-        _compare_lattice(jsl.trim_sequence_lattice(jl, trim),
+        _compare_lattice(jax.jit(functools.partial(
+            jsl.trim_sequence_lattice, trim_caps=trim))(jl),
                          tsl.trim_sequence_lattice(tl, trim))

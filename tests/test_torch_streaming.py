@@ -44,6 +44,8 @@ from temporal_latticenet_tpu_torch.ops import vertex_table as tvt
 from temporal_latticenet_tpu_torch.train import engine
 from temporal_latticenet_tpu_torch.train.convert import params_from_jax
 
+from .test_torch_configs import _one_torch_thread  # noqa: F401
+
 # sigma 0.5 scales bit-identically in both packages (a power-of-two divisor)
 SIGMA = 0.5
 CAPS = (8192, 6144, 4096)
@@ -342,8 +344,10 @@ def test_per_frame_pointnet_matches_jax(tiny):
     pos, val, mask = tiny["pos"][1], tiny["val"][1], tiny["mask"][1]
     jcfg = JModelConfig(**TINY_CFG)
     cap = TINY_RT["capacity_level0"]
-    table, dist = jlo.distribute(jvt.make_table(cap, 3), jnp.asarray(pos),
-                                 jnp.asarray(mask), TINY_RT["sigma"])
+    # JAX's functions jitted: op by op, each operation compiles alone
+    table, dist = jax.jit(functools.partial(
+        jlo.distribute, sigma=TINY_RT["sigma"]))(
+        jvt.make_table(cap, 3), jnp.asarray(pos), jnp.asarray(mask))
     nbr = j_build_nbr(table)
     vrows = np.repeat(val, 4, axis=0) * np.asarray(dist.row_valid)[:, None]
     h = np.random.default_rng(5).standard_normal((cap, 32)).astype(np.float32)
@@ -351,7 +355,7 @@ def test_per_frame_pointnet_matches_jax(tiny):
     h[200:] = 0
     args = (jnp.int32(int(table.count)), jnp.asarray(h), jnp.int32(200),
             jnp.asarray(False))
-    want, want_h = JPointNet(jcfg).apply(
+    want, want_h = jax.jit(JPointNet(jcfg).apply)(
         {"params": tiny["jparams"]["point_net_seq"]}, dist,
         jnp.asarray(vrows), nbr, *args)
 

@@ -1,7 +1,8 @@
 """The PyTorch port's flagship training step against the JAX package's on the
 CPU: the loss and every parameter's gradient of ``grad_step``, with the JAX
 weights carried through ``params_from_jax``, plus the step's own contract
-(remat modes, metrics, the optimizer step, what is not ported).
+(at the ``TINY`` widths, without JAX: remat modes, metrics, the optimizer
+step, dropout, batches, what is not ported).
 
 Geometry: 4 frames of 1,024 padded points, all three trims active (the
 inputs of ``tests/test_torch_forward.py``).  Tolerances: both sides round
@@ -9,13 +10,12 @@ the same operands to bf16 and accumulate in float32 in different orders,
 and in the backward the gradients of the bf16 operands are rounded to bf16
 as well, so a last-bit difference can flip a later rounding.  The loss is
 held to 1e-2, each parameter's gradient to a cosine of at least 0.99 with
-JAX's, and the global gradient norm to 2 %.  Measured (this geometry, CPU):
-|d loss| 2.3e-4, smallest cosine 0.99419 (the first pointnet layer's
-weight, whose gradient sums over every union row after the bf16 rounding
-of the straight-through max), global norm 0.033 % above JAX's.
+JAX's, and the global gradient norm to 2 %.  Measured (this geometry, CPU,
+one torch thread, the same in every run): |d loss| 2.3e-4, smallest cosine
+0.99362 (the first pointnet layer's weight, whose gradient sums over every
+union row after the bf16 rounding of the straight-through max), global
+norm 0.032 % above JAX's (on eight threads 0.99419 and 0.033 %).
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +33,14 @@ from temporal_latticenet_tpu.train import optim as joptim
 from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
 from temporal_latticenet_tpu_torch.train import engine
 from temporal_latticenet_tpu_torch.train.convert import params_from_jax
+
+from .test_torch_configs import RT as CONFIGS_RT
+# torch on one thread for the whole file: beside the suite's other workers
+# an OpenMP team waits on its slowest thread at every operation, and on
+# more threads the CPU's ``index_put_`` accumulate (the gathers' backward)
+# adds with atomics, so a step's gradients change from run to run; on one
+# thread they are a fixed left fold (scripts/torch_cpu_determinism.py)
+from .test_torch_configs import TINY, _clouds, _one_torch_thread  # noqa: F401
 
 P = 1024
 RT = dict(max_points=P, capacity_level0=8192, capacity_decay=0.5,
@@ -73,14 +81,12 @@ def jax_grads(jparams, batch):
     return float(loss), jax.tree_util.tree_map(np.asarray, grads["params"])
 
 
-def _port(jparams, remat="full"):
-    cfg = ModelConfig()
-    rt = RuntimeConfig(**dict(RT, remat_mode=remat))
-    model, state = engine.create_train_state(cfg, rt, 1e-3, 1e-3,
-                                             device="cpu")
+def _port_step(jparams):
+    """The port's flagship training step on JAX's weights."""
+    cfg, rt = ModelConfig(), RuntimeConfig(**RT)
+    model, _ = engine.create_train_state(cfg, rt, 1e-3, 1e-3, device="cpu")
     model.load_state_dict(params_from_jax(jparams, cfg), strict=True)
-    train_step, eval_step = engine.make_train_step(model, cfg, rt)
-    return model, state, train_step, eval_step
+    return engine.make_train_step(model, cfg, rt)[0]
 
 
 def _cosine(a, b):
@@ -94,7 +100,7 @@ def _cosine(a, b):
 def test_flagship_grad_step_matches_jax(jparams, batch, jax_grads):
     jloss, jgrads = jax_grads
     want = params_from_jax(jgrads, ModelConfig())
-    _, _, train_step, _ = _port(jparams)
+    train_step = _port_step(jparams)
     loss, grads = train_step.grad_step(engine.SeqBatch(*batch))
     assert abs(float(loss) - jloss) <= LOSS_ATOL
     assert sorted(grads) == sorted(want)
@@ -111,48 +117,58 @@ def test_flagship_grad_step_matches_jax(jparams, batch, jax_grads):
     assert abs(got_norm - want_norm) <= NORM_RTOL * want_norm
 
 
-@pytest.fixture
-def one_thread():
-    """torch's CPU work on one thread for the test.  On more threads the
-    CPU's ``index_put_`` accumulate (the gathers' backward) adds with
-    atomics, so a step's gradients change from run to run; on one thread
-    they are a fixed left fold (scripts/torch_cpu_determinism.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
+# the step's contract (metrics, the update, dropout, batches, what raises)
+# needs no JAX weights: it runs at tests/test_torch_configs.py's TINY widths
+# with the flagship fusions, on that file's 3 frames of 96 points (80 real)
+TINY_RT = dict(CONFIGS_RT, remat_mode="full")
+
+
+@pytest.fixture(scope="module")
+def tiny_batch():
+    return tuple(a[None] for a in _clouds(3, 96, 80, 2.0, 0))
+
+
+def _tiny(rt=TINY_RT, **cfg_kw):
+    cfg = ModelConfig(**dict(TINY, **cfg_kw))
+    rt = RuntimeConfig(**rt)
+    model, state = engine.create_train_state(cfg, rt, 1e-3, 1e-3,
+                                             device="cpu")
+    train_step, eval_step = engine.make_train_step(model, cfg, rt)
+    return model, state, train_step, eval_step
 
 
 @pytest.mark.parametrize("remat", ["none", "selective"])
-def test_remat_modes_give_the_same_gradients(jparams, batch, remat,
-                                             one_thread):
+def test_remat_modes_give_the_same_gradients(batch, remat):
     """Rematerialisation recomputes the same functions on the same inputs,
     so the loss is bit-equal to full remat's; autograd sums a parameter's
     gradient contributions in another order, which can flip a bf16
     rounding of an operand gradient, so the gradients are held to a cosine
-    of 0.9999.  Measured (scripts/torch_cpu_determinism.py): 1.000000000
-    on one thread in every run; 0.99994554 and 0.99999794 in two runs on 8
-    threads of 8 idle cores."""
-    _, _, full_step, _ = _port(jparams, "full")
-    _, _, other_step, _ = _port(jparams, remat)
+    of 0.9999.  The ``TINY`` widths with the flagship's geometry and
+    classes: its 4 frames of 1,024 points and its trims, the same seed-0
+    weights in both models.  Measured at the flagship widths
+    (scripts/torch_cpu_determinism.py): 1.000000000 on one thread in every
+    run; 0.99994554 and 0.99999794 in two runs on 8 threads of 8 idle
+    cores."""
+    full, other = (_tiny(dict(RT, remat_mode=m), frames_per_seq=4,
+                         nr_classes=ModelConfig().nr_classes)
+                   for m in ("full", remat))
+    other[0].load_state_dict(full[0].state_dict())
     b = engine.SeqBatch(*batch)
-    loss_f, g_f = full_step.grad_step(b)
-    loss_o, g_o = other_step.grad_step(b)
+    loss_f, g_f = full[2].grad_step(b)
+    loss_o, g_o = other[2].grad_step(b)
     assert float(loss_f) == float(loss_o)
     for name in g_f:
         assert _cosine(g_f[name].numpy(), g_o[name].numpy()) >= 0.9999, name
 
 
-def test_train_step_metrics_and_update(jparams, batch):
-    model, state, train_step, eval_step = _port(jparams)
-    b = engine.SeqBatch(*batch)
+def test_train_step_metrics_and_update(tiny_batch):
+    model, state, train_step, eval_step = _tiny()
+    b = engine.SeqBatch(*tiny_batch)
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
     logp_e, m_e = eval_step(b)
     state, logp, m = train_step(state, b, 0.5)
     assert state.step == 1
-    assert logp.shape == (1, P, ModelConfig().nr_classes)
+    assert logp.shape == (1, TINY_RT["max_points"], TINY["nr_classes"])
     assert torch.equal(logp, logp_e)        # same forward before the update
     assert sorted(m) == ["grad_norm", "loss", "lovasz", "nll", "nr_vertices",
                          "vertex_overflow"]
@@ -178,29 +194,24 @@ def test_train_step_metrics_and_update(jparams, batch):
     assert float(m2["loss"]) != float(m["loss"])
 
 
-def test_unported_training_options_raise(jparams, batch):
+def test_unported_training_options_raise(tiny_batch):
     """Unknown remat modes raise; a batch of two sequences runs (the mean
     of its losses, (2, P, K) log-probabilities).  Dropout in the slice head
     runs: the training step takes it, and ``eval_step`` stays
     deterministic."""
-    cfg, rt = ModelConfig(), RuntimeConfig(**RT)
-    dcfg = dataclasses.replace(cfg, dropout_last_layer=0.2)
-    model, state = engine.create_train_state(dcfg, rt, 1e-3, 1e-3,
-                                             device="cpu")
-    model.load_state_dict(params_from_jax(jparams, dcfg), strict=True)
-    d_train, d_eval = engine.make_train_step(model, dcfg, rt)
-    small = engine.SeqBatch(*(a[:, :2] for a in batch))
+    model, state, d_train, d_eval = _tiny(dropout_last_layer=0.2)
+    small = engine.SeqBatch(*(a[:, :2] for a in tiny_batch))
     state, _, m = d_train(state, small, 1.0)
     assert state.step == 1 and np.isfinite(float(m["loss"]))
     assert 0.15 < float(m["dropped_share"]) < 0.25
     (a, ma), (b, mb) = d_eval(small), d_eval(small)
     assert torch.equal(a, b) and float(ma["loss"]) == float(mb["loss"])
-    _, _, train_step, eval_step = _port(jparams)
-    two = engine.SeqBatch(*(np.concatenate([a, a]) for a in batch))
+    model, _, train_step, eval_step = _tiny()
+    two = engine.SeqBatch(*(np.concatenate([a, a]) for a in tiny_batch))
     logp2, m2 = eval_step(two)
-    logp1, m1 = eval_step(engine.SeqBatch(*batch))
-    assert logp2.shape == (2, P, cfg.nr_classes)
+    logp1, m1 = eval_step(engine.SeqBatch(*tiny_batch))
+    assert logp2.shape == (2, TINY_RT["max_points"], TINY["nr_classes"])
     assert torch.equal(logp2[0], logp1[0]) and torch.equal(logp2[1], logp1[0])
     assert float(m2["loss"]) == float(m1["loss"])
     with pytest.raises(ValueError):
-        engine.sequence_forward(model, cfg, rt, remat="some")
+        engine.sequence_forward(model, model.cfg, model.rt, remat="some")

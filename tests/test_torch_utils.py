@@ -40,6 +40,8 @@ from temporal_latticenet_tpu_torch.utils.label_mngr import LabelMngr
 from tests.test_loop import _patch_lengths, tiny_world  # noqa: F401
 from tests.test_torch_streaming import TINY_CFG, TINY_RT
 
+from .test_torch_configs import _one_torch_thread  # noqa: F401
+
 SIGMA = 0.5
 
 
