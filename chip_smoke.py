@@ -172,7 +172,19 @@ Phases, in order; any failure exits non-zero without the final line:
     run's seconds a step (median and quartiles, host clock), the loader's
     seconds a window, peak memory, launches a step, each epoch's mean loss
     and the train and valid mIoU;
-20. one JSON line with the kernels, the device line, and the result line
+20. the three benchmark drivers, each run as a user runs it
+    (``python -m temporal_latticenet_tpu_torch.<driver>`` in a child
+    process under ``build/``, ``TLN_BENCH_BUDGET_S`` = ``BENCH_BUDGET_S``):
+    ``bench --details``; ``train_bench`` with ``--remat selective`` on the
+    default route (K4), the same under ``TLN_MAXSCAN_PACKED=1`` (K5 and
+    K4), ``--remat full`` and ``--remat none``; ``bench_streaming
+    --streams 4``.  Each must exit 0 with a last line of its JAX script's
+    keys and metric, a positive value, no saturated table, no trim
+    overflow and no vertex overflow; ``bench`` and the default-route steps
+    launch K1-K4, the packed one K5, the default ones no K5; peak memory
+    inside the card's.  It reports each line, ``bench``'s repetitions with
+    their spread and host syncs, and each step's launches and memory;
+21. one JSON line with the kernels, the device line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Phase 8 also reports the deform slice's gather backward
@@ -196,7 +208,6 @@ import subprocess
 import sys
 import time
 import traceback
-import warnings
 
 import numpy as np
 import torch
@@ -330,6 +341,36 @@ TRAIN_LIDAR_KEYS = ("variant", "moving", "worlds", "scans",
                     "miou_valid", "iou_valid")
 OVERFIT_KEYS = ("loader_s_per_seq", "train_wall_s", "epochs", "capacity",
                 "miou_train", "miou_valid")
+
+# phase 20: the benchmark drivers as a user runs them
+BENCH_DIR = os.path.join(ROOT, "build", "bench_smoke")
+BENCH_BUDGET_S = 240       # TLN_BENCH_BUDGET_S of the bench run
+BENCH_TIMEOUT = 300        # seconds for one driver's process
+# the JAX scripts' result keys (bench.py:310-316, scripts/train_bench.py:
+# 123-137, scripts/bench_streaming.py:169-188)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline")
+TRAIN_BENCH_KEYS = ("metric", "value", "unit", "seconds_per_step",
+                    "seconds_per_step_synced", "timing_protocol",
+                    "compile_seconds", "remat", "trim_capacity",
+                    "final_capacity", "vertex_overflow")
+STREAMING_KEYS = ("metric", "trimmed_frame_ms", "final_frame_ms",
+                  "incremental_trimmed_frame_ms",
+                  "incremental_final_frame_ms", "points_per_frame",
+                  "compile_seconds", "incremental_compile_seconds", "note")
+STREAMS_KEYS = ("streams", "mesh_devices", "streams_trimmed_frame_ms",
+                "streams_final_frame_ms", "streams_compile_seconds")
+BENCH_STREAMS = 4
+# (name, driver module, flags, TLN_MAXSCAN_PACKED)
+BENCH_RUNS = (
+    ("bench", "bench", ["--details"], False),
+    ("train_bench_selective", "train_bench", ["--remat", "selective"], False),
+    ("train_bench_selective_packed", "train_bench",
+     ["--remat", "selective"], True),
+    ("train_bench_full", "train_bench", ["--remat", "full"], False),
+    ("train_bench_none", "train_bench", ["--remat", "none"], False),
+    ("bench_streaming", "bench_streaming",
+     ["--streams", str(BENCH_STREAMS)], False),
+)
 
 KERNELS = {
     "fused_simplex_pack": dict(
@@ -1310,37 +1351,15 @@ def run_stream(fns, frames, times=None, counts=None):
 
 
 def host_syncs(fn):
-    """Calls inside ``fn`` that made the host wait for the device (the
-    ``torch.cuda`` sync debug mode's warnings), counted by the innermost
-    line of this repository on the stack that made them."""
+    """Calls inside ``fn`` that made the host wait for the device, counted
+    by the innermost line of this repository on the stack that made them
+    (``utils/profiling.host_syncs``)."""
+    from temporal_latticenet_tpu_torch.utils.profiling import \
+        host_syncs as counting_host_syncs
+
     with counting_host_syncs() as where:
         fn()
     return where
-
-
-@contextlib.contextmanager
-def counting_host_syncs():
-    """The counts of :func:`host_syncs` for the calls inside the block."""
-    where = {}
-
-    def record(message, *args, **kwargs):
-        if "synchroniz" not in str(message):
-            return
-        mine = [f for f in traceback.extract_stack()
-                if f.filename.startswith(ROOT)
-                and not f.filename.endswith("chip_smoke.py")]
-        key = (f"{os.path.relpath(mine[-1].filename, ROOT)}:"
-               f"{mine[-1].lineno}" if mine else "outside the repository")
-        where[key] = where.get(key, 0) + 1
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            yield where
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
 
 
 def check_stream_output(logp, aux, rt_kw, mask_last):
@@ -1870,7 +1889,8 @@ class LoopProbe:
                         profiling.window())
                     probe.t_prof = time.perf_counter()
                 if train and i == LOOP_SYNC_STEP - 1:
-                    probe.syncs = stack.enter_context(counting_host_syncs())
+                    probe.syncs = stack.enter_context(
+                        profiling.host_syncs())
 
             def epoch_ended(self, *, phase=None, **kw):
                 probe.miou[phase.name] = phase.scores.avg_class_iou()
@@ -2860,6 +2880,145 @@ def log_experiments(exp, dline):
             f"{r['wall_s']:.1f} s on {dline}")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the benchmark drivers
+# ---------------------------------------------------------------------------
+
+def run_driver(module: str, flags, packed: bool):
+    """``python -m temporal_latticenet_tpu_torch.<module> <flags>`` in
+    ``BENCH_DIR``; returns (its JSON lines, its seconds).  Fails on a
+    non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               TLN_BENCH_BUDGET_S=str(BENCH_BUDGET_S))
+    env.pop("TLN_MAXSCAN_PACKED", None)
+    if packed:
+        env["TLN_MAXSCAN_PACKED"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"temporal_latticenet_tpu_torch.{module}",
+         *flags], cwd=BENCH_DIR, env=env, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} {flags}: rc {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = [json.loads(s) for s in proc.stdout.strip().splitlines()
+             if s.startswith("{")]
+    if not lines:
+        raise AssertionError(f"{module} {flags}: no JSON line: "
+                             f"{proc.stdout[-1000:]}")
+    return lines, secs
+
+
+def _check_launches(name, launches, want, never=()):
+    missing = [k for k in want if not launches.get(k)]
+    extra = [k for k in never if launches.get(k)]
+    if missing or extra:
+        raise AssertionError(f"{name}: launches {launches} (not launched: "
+                             f"{missing}; launched: {extra})")
+
+
+def benches(dev):
+    """Phase 20: each driver as a user runs it (see the module
+    docstring)."""
+    import shutil
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {}
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    os.makedirs(BENCH_DIR)
+    try:
+        for name, module, flags, packed in BENCH_RUNS:
+            lines, secs = run_driver(module, flags, packed)
+            line = lines[-1]
+            r = dict(line=line, process_seconds=secs)
+            if module == "bench":
+                keys = BENCH_KEYS
+                with open(os.path.join(BENCH_DIR, "bench_details_torch.json")) \
+                        as fh:
+                    det = json.load(fh)
+                r["details"] = det
+                if line["metric"] != "semantickitti_4frame_seq_inference":
+                    raise AssertionError(f"bench metric {line['metric']}")
+                if det["saturated"] or det["trim_overflowed"] \
+                        or det["vertex_overflow"]:
+                    raise AssertionError(f"bench: saturated "
+                                         f"{det['saturated']}, trim overflow "
+                                         f"{det['trim_overflowed']}, vertex "
+                                         f"overflow {det['vertex_overflow']}")
+                if det.get("reps") != 3:
+                    raise AssertionError(f"bench: {det.get('reps')} "
+                                         f"repetitions")
+                _check_launches(name, det["launches_per_forward"],
+                                FORWARD_KERNELS,
+                                ("sorted_segment_max_window",))
+                peak = det["peak_mem_bytes"]
+            elif module == "train_bench":
+                keys = TRAIN_BENCH_KEYS
+                det = lines[-2]["details"]
+                r["details"] = det
+                if line["metric"] != "semantickitti_4frame_train_step":
+                    raise AssertionError(f"train_bench metric "
+                                         f"{line['metric']}")
+                if line["vertex_overflow"]:
+                    raise AssertionError(f"{name}: vertex overflow")
+                if packed:
+                    _check_launches(name, det["launches_per_step"],
+                                    tuple(KERNELS))
+                else:
+                    _check_launches(name, det["launches_per_step"],
+                                    FORWARD_KERNELS,
+                                    ("sorted_segment_max_window",))
+                peak = det["peak_mem_bytes"]
+            else:
+                keys = STREAMING_KEYS + STREAMS_KEYS
+                if line["streams"] != BENCH_STREAMS \
+                        or line["mesh_devices"] != 1:
+                    raise AssertionError(f"bench_streaming: streams "
+                                         f"{line['streams']} over "
+                                         f"{line['mesh_devices']} devices")
+                if not all(line[k] > 0 for k in keys if k.endswith("_ms")):
+                    raise AssertionError(f"bench_streaming: {line}")
+                peak = None
+            if sorted(line) != sorted(keys):
+                raise AssertionError(f"{name}: keys {sorted(line)}, the JAX "
+                                     f"script's {sorted(keys)}")
+            if "value" in line and not line["value"] > 0:
+                raise AssertionError(f"{name}: value {line['value']}")
+            if peak is not None and not 0 < peak < total:
+                raise AssertionError(f"{name}: peak {peak} bytes of {total}")
+            out[name] = r
+    finally:
+        shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    return out
+
+
+def log_benches(b, dline):
+    """Phase 20's lines of the log."""
+    for name, r in b.items():
+        log(f"[benches] {name} ({r['process_seconds']:.1f} s of process) on "
+            f"{dline}: {json.dumps(r['line'])}")
+        det = r.get("details")
+        if name == "bench":
+            log(f"[benches] bench: {det['seconds_per_sequence']:.4f} s/seq, "
+                f"repetitions {det['seconds_per_sequence_reps']} (min "
+                f"{det['seconds_per_sequence_min']:.4f}, max "
+                f"{det['seconds_per_sequence_max']:.4f}) of {det['iters']} "
+                f"sequences; single {det['seconds_per_sequence_single']:.4f},"
+                f" synced {det.get('seconds_per_sequence_synced')}, "
+                f"pipelined {det.get('seconds_per_sequence_pipelined')}; "
+                f"first forward {det['compile_seconds']:.2f} s; host syncs "
+                f"in a forward {det['host_syncs_per_forward']}; launches "
+                f"{det['launches_per_forward']}; occupancy "
+                f"{det['occupancy_final_union']}; peak "
+                f"{det['peak_mem_bytes'] / 1e9:.2f} GB")
+        elif det is not None:
+            log(f"[benches] {name}: route {det['pointnet_max_route']}; "
+                f"launches a step {det['launches_per_step']}; peak "
+                f"{det['peak_mem_bytes'] / 1e9:.2f} GB; synced steps "
+                f"{det['seconds_per_step_synced_all']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -3080,6 +3239,10 @@ def main(argv=None) -> int:
         exp = phase("experiments", lambda: lidar_experiments(dev))
         if exp:
             log_experiments(exp, dline)
+        torch.cuda.empty_cache()
+        bn = phase("benches", lambda: benches(dev))
+        if bn:
+            log_benches(bn, dline)
 
     # launches: the training step (this slice's path, on the packed route);
     # the forwards' counts beside them
@@ -3132,6 +3295,13 @@ def main(argv=None) -> int:
                 "launches_rank_step") or {}).get(name, 0),
             launches_autotune=((report.get("utilities") or {}).get(
                 "autotune_launches") or {}).get(name, 0),
+            launches_bench=((((report.get("benches") or {}).get("bench")
+                               or {}).get("details") or {}).get(
+                "launches_per_forward") or {}).get(name, 0),
+            launches_train_bench={
+                run: (r["details"]["launches_per_step"]).get(name, 0)
+                for run, r in (report.get("benches") or {}).items()
+                if run.startswith("train_bench")},
             launches_experiments_step={
                 run: r["launches_per_step_min"].get(name, 0)
                 for run, r in (report.get("experiments") or {}).items()

@@ -3,6 +3,8 @@ CPU, and never falls back to the CPU on its own."""
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -23,3 +25,28 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def describe(device: torch.device) -> dict:
+    """What a measurement on ``device`` was taken on: the backend, the
+    device's name, ``nvidia-smi``'s name and power limit of the card
+    (``card``; None on the CPU), and the torch and CUDA versions."""
+    info = {"backend": device.type, "device": "cpu", "card": None,
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+    if device.type == "cuda":
+        info["device"] = torch.cuda.get_device_name(device)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={device.index or 0}"],
+            capture_output=True, text=True, timeout=60)
+        if out.returncode != 0:
+            raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+        info["card"] = out.stdout.strip()
+    return info

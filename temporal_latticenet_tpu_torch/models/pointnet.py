@@ -201,10 +201,9 @@ class PointNetSeq(nn.Module):
         zeroed on invalid rows and divided by their vertex's sum.  Row sums
         go through :func:`lattice_ops.segment_sum` (valid rows never lie in
         the invalid bucket 0).  The per-vertex values go back to the rows
-        through :func:`lattice_ops.gather_rows`, whose backward leaves out
-        the invalid rows' reads of row 0 (autograd's would add them one
-        after another: C-1's fault): row 0's maximum and sum take no
-        gradient anyway, the one being masked as empty, the other 0."""
+        through :func:`lattice_ops.gather_rows`, whose backward spreads the
+        invalid rows' reads of row 0 (autograd's would add them one after
+        another: C-1's fault)."""
         mx, _ = segment_max_with_argmax(x, rid, cap, rvalid)
         xm = x + self.gamma * lo.gather_rows(mx, rid)
         pre = self.pre_conv(xm)

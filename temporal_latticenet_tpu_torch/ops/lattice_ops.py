@@ -15,10 +15,11 @@ gather (:class:`_Gather8Sym`), the coarsen splat's is the barycentric slice
 (:class:`_SplatSorted`), and the finefy slice's is the splat on the link's
 dst-sorted view through kernel K2 (:class:`_SliceSorted`).  The deform
 slice's row gather (:class:`_GatherRows`) adds its backward with
-:func:`segment_sum`, which leaves out the rows that read the invalid row
-0.  Barycentric weights get no gradient (nothing differentiates point
-positions).  The streaming path's links have no dst-sorted view: their
-splat is a float32 :func:`segment_sum` and their slice a plain gather.
+:func:`segment_sum`, which spreads the rows that read the invalid row 0
+before it adds them.  Barycentric weights get no gradient (nothing
+differentiates point positions).  The streaming path's links have no
+dst-sorted view: their splat is a float32 :func:`segment_sum` and their
+slice a plain gather.
 
 The streaming structures keep every count on the device; nothing in a frame
 reads a tensor on the host.  ``.at[...].set(..., mode="drop")`` of the JAX
@@ -103,34 +104,42 @@ class FrameStructures:
     overflowed: torch.Tensor    # () bool
 
 
-_SPREAD = 1024   # rows that take segment 0's rows in segment_sum
+_SPREAD = 1024   # rows that take segment 0's rows in segment_sum (2**10)
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Per-segment sums of the rows of ``data`` (the JAX package's
-    ``segment_sum``), the same bits on every call and on either device:
-    each segment's rows are added in row order.  On the CPU that is
-    ``index_add_``; on CUDA ``index_add_`` would add with atomics, in an
-    order that changes from run to run, so ``index_put_`` with
+    ``segment_sum``, ``jax.ops.segment_sum``): ids outside
+    ``[0, num_segments)`` are dropped.  The same bits on every call and on
+    either device: each segment's rows are added in row order.  On the CPU
+    that is ``index_add_``; on CUDA ``index_add_`` would add with atomics,
+    in an order that changes from run to run, so ``index_put_`` with
     ``accumulate`` sorts the ids and adds each segment's rows in turn.
 
-    Segment 0 is the reserved invalid bucket, whose rows carry zero weight
-    or whose sum is masked by every caller: its rows are left out and its
-    sum is 0.  They go to ``_SPREAD`` extra rows instead, because the
-    sorted accumulate adds one segment's rows one after another, and the
-    bucket holds every masked point's rows (tens of thousands a frame)."""
+    Segment 0 is the reserved invalid bucket, which holds every masked
+    point's rows (tens of thousands a frame).  The sorted accumulate would
+    add them one after another, so row ``r`` of segment 0 goes to spare row
+    ``r % _SPREAD`` instead, and the spare rows are then added pairwise,
+    halving their count each time (a fixed order on both devices)."""
     q = segment_ids.shape[0]
     spread = num_segments + (torch.arange(q, device=segment_ids.device)
                              % _SPREAD)
-    ids = torch.where(segment_ids > 0, segment_ids, spread)
-    out = torch.zeros((num_segments + _SPREAD,) + tuple(data.shape[1:]),
+    drop = num_segments + _SPREAD
+    ids = torch.where(segment_ids == 0, spread, segment_ids)
+    ids = torch.where((segment_ids < 0) | (segment_ids >= num_segments),
+                      drop, ids)
+    out = torch.zeros((drop + 1,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
     if data.is_cuda:
         out.index_put_((ids,), data, accumulate=True)
     else:
         out.index_add_(0, ids, data)
-    return out[:num_segments]
+    zero = out[num_segments:drop]
+    while zero.shape[0] > 1:
+        half = zero.shape[0] // 2
+        zero = zero[:half] + zero[half:]
+    return torch.cat([zero, out[1:num_segments]])
 
 
 def distribute(table: VertexTable, positions: torch.Tensor,
@@ -346,10 +355,7 @@ class _GatherRows(torch.autograd.Function):
     """``values[idx]`` whose backward is :func:`segment_sum` of the
     cotangent rows by ``idx``: each row's contributions added in row order,
     and the rows that read row 0 (every masked point reads the invalid
-    bucket) left out instead of forming one serial chain.  Row 0's gradient
-    is therefore 0, which is exact only where nothing upstream uses it: the
-    ``mask_rows`` invariant (``values`` comes out of ``mask_rows``, whose
-    backward zeroes row 0)."""
+    bucket) spread over spare rows instead of forming one serial chain."""
 
     @staticmethod
     def forward(ctx, values, idx):
@@ -365,8 +371,7 @@ class _GatherRows(torch.autograd.Function):
 
 
 def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``values[idx]`` for rows of a ``mask_rows``-clean array, with the
-    backward of :class:`_GatherRows` (row 0's gradient is dropped)."""
+    """``values[idx]`` with the backward of :class:`_GatherRows`."""
     return _GatherRows.apply(values, idx)
 
 
@@ -568,8 +573,8 @@ def splat_classic(point_values: torch.Tensor, point_vertex: torch.Tensor,
     Args:
       point_values: (P, C); point_vertex: (P, 4) int64 (0 = invalid);
       point_bary: (P, 4) float32, 0 for invalid corners.
-    Returns (capacity, C); row 0, the invalid bucket, is 0 (the
-    ``mask_rows`` invariant)."""
+    Returns (capacity, C); row 0, the invalid bucket, sums the invalid
+    corners' zero-weighted rows."""
     contrib = point_values[:, None, :] * point_bary[..., None]
     return segment_sum(contrib.reshape(-1, point_values.shape[-1]),
                        point_vertex.reshape(-1), capacity)

@@ -266,11 +266,8 @@ def segment_max_with_argmax(data, segment_ids, num_segments: int,
 
 def segment_mean(data, segment_ids, num_segments: int, valid=None):
     """Per-segment mean of the (valid) rows of ``data``, 0 for an empty
-    segment (the JAX package's ``segment_mean``), on
-    :func:`lattice_ops.segment_sum`: the same bits on every call, and
-    segment 0, the invalid bucket, reads 0.  The JAX package's mean of
-    segment 0 differs only where a valid row has id 0, which no caller
-    passes (a row is valid only on a real vertex).
+    segment (the JAX package's ``segment_mean``, segment 0 included), on
+    :func:`lattice_ops.segment_sum`: the same bits on every call.
 
     Args:
       data: (R, C); segment_ids: (R,) int64 in [0, num_segments);

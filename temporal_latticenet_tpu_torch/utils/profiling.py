@@ -5,7 +5,8 @@
 activity where a card is present) and writes it as a Chrome trace; the
 model marks its phases with ``torch.profiler.record_function`` spans of the
 JAX package's ``jax.named_scope`` names ("distribute", "pointnet").
-``wall_timer`` and ``block`` time quick spans; ``enable_nan_debugging`` is
+``wall_timer`` and ``block`` time quick spans, ``host_syncs`` counts the
+calls that made the host wait for the card; ``enable_nan_debugging`` is
 ``torch.autograd.set_detect_anomaly``, the reference's own debug aid
 (upstream train_ln.py:36).
 """
@@ -15,10 +16,15 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import traceback
+import warnings
 
 import torch
 
 TRACE_FILE = "trace.json"
+# the checkout that holds the package: host_syncs names lines inside it
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 # device operations of the discarded warm-up step of ``window``
@@ -92,6 +98,35 @@ def wall_timer(name: str, sink=print):
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     sink(f"[{name}] {time.perf_counter() - t0:.4f}s")
+
+
+@contextlib.contextmanager
+def host_syncs():
+    """Counts the calls inside the block that made the host wait for the
+    card (the warnings of ``torch.cuda``'s sync debug mode), by the
+    innermost line of the repository that holds this package on the stack
+    that made them (``"file:line"``, or ``"outside the repository"``);
+    yields that dict, filled in as the block runs.  A sync inside a
+    forward caps how far ahead of the card the host can queue."""
+    where = {}
+
+    def record(message, *args, **kwargs):
+        if "synchroniz" not in str(message):
+            return
+        mine = [f for f in traceback.extract_stack()
+                if f.filename.startswith(REPO) and f.filename != __file__]
+        key = (f"{os.path.relpath(mine[-1].filename, REPO)}:"
+               f"{mine[-1].lineno}" if mine else "outside the repository")
+        where[key] = where.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield where
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
 
 
 def _tensors(tree):

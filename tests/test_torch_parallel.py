@@ -332,3 +332,27 @@ def test_train_ln_under_torchrun(tiny_world):  # noqa: F811
     assert "data parallel: 2 sequences/step over 2 ranks" in run.stdout
     assert run.stdout.count("saved checkpoint:") == 1
     assert any(c.endswith("_epoch0.ckpt") for c in os.listdir(world / "ckpts"))
+
+
+def test_bench_streaming_streams_over_torchrun_ranks():
+    """``bench_streaming`` under ``torchrun`` with two ranks on the CPU
+    splits its two streams over them (``mesh_devices`` 2) and prints its
+    line once, from rank 0."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=2",
+         os.path.join(repo, "tests", "torch_parallel_workers.py")],
+        capture_output=True, text=True, env=env, timeout=SPAWN_TIMEOUT)
+    assert run.returncode == 0, run.stderr[-3000:]
+    lines = [json.loads(s) for s in run.stdout.splitlines()
+             if s.startswith("{")]
+    assert len(lines) == 1, run.stdout
+    assert lines[0]["streams"] == 2 and lines[0]["mesh_devices"] == 2
+    assert lines[0]["streams_final_frame_ms"] > 0
