@@ -1,0 +1,9 @@
+"""Host milliseconds a unit (sequence, step or frame) owned by the port's
+``tln.train.backward`` and ``tln.backward.*`` spans
+(``harness/program_spans.py``)."""
+
+from harness.program_spans import layer_ms
+
+
+def read(ctx):
+    return layer_ms(ctx, "backward", "host")

@@ -1,0 +1,8 @@
+"""Host milliseconds a unit (sequence, step or frame) owned by the port's
+``tln.lattice.*`` spans (``harness/program_spans.py``)."""
+
+from harness.program_spans import layer_ms
+
+
+def read(ctx):
+    return layer_ms(ctx, "lattice", "host")

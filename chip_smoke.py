@@ -150,7 +150,7 @@ Phases, in order; any failure exits non-zero without the final line:
 18. the utilities: ``autotune_capacities`` over two sequences of phase
     4's data (its level counts equal the flagship build's; K1-K3
     launched), ``profiling.trace`` around one flagship forward (the trace holds the
-    "distribute" and "pointnet" spans and K1-K4), and ``visualize_cli`` on
+    port's engine, lattice and pointnet spans and K1-K4), and ``visualize_cli`` on
     one sequence of the reduced geometry from the shipped eval cfg
     without ``--render`` (one ``.npz`` per frame after the first, weights
     finite, neighbors inside the capacity), each with its seconds;
@@ -236,6 +236,9 @@ ARGMAX_AGREE = 0.99
 TRAIN_STEPS = 6        # timed training steps after the warm one
 PROFILE_STEPS = 2      # training steps under torch.profiler
 PROFILE_TRIES = 5      # tries of a profiler window that lost device events
+# spans a traced flagship forward holds (``utils/profiling.span``)
+TRACE_SPANS = {"tln.engine.sequence", "tln.lattice.build", "tln.lattice.frame",
+               "tln.model.pointnet", "tln.model.slice"}
 PROFILE_RETRY_S = 0.5  # pause before the second try, doubled for each next
 # training step held against itself on the CPU: the tolerance of the CPU
 # test against the JAX package (tests/test_torch_train.py), for the same
@@ -2557,7 +2560,7 @@ def utilities(dev):
                 names = {e.get("name", "")
                          for e in json.load(fh)["traceEvents"]}
             kernels = {hand_written(n) for n in names} - {None}
-            lacking = ({"distribute", "pointnet"} - names) \
+            lacking = (TRACE_SPANS - names) \
                 | (set(FORWARD_KERNELS) - kernels)
             if not lacking:
                 break

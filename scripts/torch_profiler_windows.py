@@ -10,9 +10,10 @@ of the given kinds, taken in turn for ``--rounds`` rounds in one process,
 with ``--pause`` seconds of sleep after each round (the process ages):
 
 * ``spans``: ``utils.profiling.window`` without a warm-up step (recording
-  from the session's start), the model's ``record_function`` spans on;
-* ``no_spans``: the same with the spans "distribute" and "pointnet"
-  replaced by no-ops;
+  from the session's start), the port's spans (``utils.profiling.span``)
+  on;
+* ``no_spans``: the same with the spans off
+  (``utils.profiling.without_spans``);
 * ``warm_up_N``: ``utils.profiling.window(warm_up_launches=N,
   settle_s=0)``, whose recording starts after a discarded warm-up step of
   N one-element operations on the card, spans on;
@@ -43,7 +44,6 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from temporal_latticenet_tpu_torch.models import lnn_seq  # noqa: E402
 from temporal_latticenet_tpu_torch.ops import _cuda  # noqa: E402
 from temporal_latticenet_tpu_torch.utils import profiling  # noqa: E402
 
@@ -76,10 +76,6 @@ def read_trace(path: Path) -> dict:
                 min_gap_us=min(gaps) if gaps else None)
 
 
-def no_spans(name):
-    return contextlib.nullcontext()
-
-
 def window(kind: str):
     if kind.startswith("warm_up_"):
         parts = kind.split("_")
@@ -109,21 +105,17 @@ def main(argv=None) -> int:
         fwd(*data)
         fwd(*data)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    spans = lnn_seq.record_function
     kinds = args.kinds.split(",")
     rows = []
     for r in range(args.rounds):
         for j in range(len(kinds)):
             kind = kinds[(r + j) % len(kinds)]     # rotate the order
-            lnn_seq.record_function = no_spans if kind == "no_spans" \
-                else spans
-            try:
-                _cuda.reset_launch_counts()
-                with torch.no_grad(), window(kind) as prof:
-                    fwd(*data)
-                launched = _cuda.launch_counts()
-            finally:
-                lnn_seq.record_function = spans
+            spans = profiling.without_spans() if kind == "no_spans" \
+                else contextlib.nullcontext()
+            _cuda.reset_launch_counts()
+            with spans, torch.no_grad(), window(kind) as prof:
+                fwd(*data)
+            launched = _cuda.launch_counts()
             path = OUT_DIR / f"{r}_{kind}.json"
             prof.export_chrome_trace(str(path))
             row = dict(round=r, kind=kind,

@@ -29,12 +29,12 @@ from typing import Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..config import ModelConfig, RuntimeConfig
 from ..device import resolve_device
 from ..ops import lattice_ops as lo
 from ..ops import vertex_table as vt
+from ..utils.profiling import span
 from .blocks import (BottleneckBlock, DeformSlice, GnReluCoarsen, GnReluFinefy,
                      ResnetBlock)
 from .fusion import AFlowFusion, make_fusion
@@ -198,7 +198,7 @@ class LNNSeq(nn.Module):
 
     def reduce_pointnet(self, seqlat, values):
         """Batched pointnet MLP + max for all frames: (T, cap0, 2*C)."""
-        with record_function("pointnet"):
+        with span("tln.model.pointnet"):
             return self.point_net_seq.reduce_sorted(
                 seqlat.sorted_pn, values, seqlat.row_bary, seqlat.nr_points)
 
@@ -216,15 +216,19 @@ class LNNSeq(nn.Module):
                     [seqlat.levels[l].counts[t] for l in range(L + 1)],
                     dist, state.tables)
         tables = list(state.tables)
-        tables[0], dist = lo.distribute(
-            tables[0], positions, mask, self.rt.sigma,
-            subtract_local_mean=subtract_local_mean(self.cfg))
-        nbrs, links = [lo.build_neighbor_table(tables[0])], []
+        with span("tln.lattice.distribute"):
+            tables[0], dist = lo.distribute(
+                tables[0], positions, mask, self.rt.sigma,
+                subtract_local_mean=subtract_local_mean(self.cfg))
+        with span("tln.lattice.neighbors0"):
+            nbrs, links = [lo.build_neighbor_table(tables[0])], []
         for i in range(L):
-            tables[i + 1], link = lo.grow_coarse_table(tables[i],
-                                                       tables[i + 1])
+            with span(f"tln.lattice.coarse{i + 1}"):
+                tables[i + 1], link = lo.grow_coarse_table(tables[i],
+                                                           tables[i + 1])
             links.append(link)
-            nbrs.append(lo.build_neighbor_table(tables[i + 1]))
+            with span(f"tln.lattice.neighbors{i + 1}"):
+                nbrs.append(lo.build_neighbor_table(tables[i + 1]))
         return (nbrs, links, [tb.count for tb in tables], dist,
                 tuple(tables))
 
@@ -249,8 +253,7 @@ class LNNSeq(nn.Module):
         cut = _last_active_site(cfg) if seq else 3
         h = list(state.h)
         pc = list(state.prev_counts)
-        # profiler spans named as the JAX package's jax.named_scope regions
-        with record_function("distribute"):
+        with span("tln.lattice.frame", frame=t):
             nbrs, links, counts, dist, tables = self._structures(
                 state, seqlat, dist, positions, mask)
 
@@ -259,7 +262,7 @@ class LNNSeq(nn.Module):
                             tables=tables)
 
         early_out = {"point_vertex": dist.point_vertex}
-        with record_function("pointnet"):
+        with span("tln.model.pointnet", frame=t):
             if pre_reduced is None:
                 values_rows = (values.repeat_interleave(4, dim=0)
                                * dist.row_valid[:, None])
@@ -280,27 +283,33 @@ class LNNSeq(nn.Module):
         # ---- down path -------------------------------------------------
         skip_values, skip_counts = [], []
         for i in range(L):
-            for block in self.resnet_blocks_per_down_lvl_list[i]:
-                lv = block(lv, nbrs[i], counts[i])
+            with span(f"tln.model.down{i}", frame=t):
+                for block in self.resnet_blocks_per_down_lvl_list[i]:
+                    lv = block(lv, nbrs[i], counts[i])
             skip_values.append(lv)
             skip_counts.append(counts[i])
             if i == 0:
                 fusion = self._fusion(0)
                 if fusion is not None:
-                    lv, h[1] = fusion(lv, h[1], pc[1], counts[0], is_first,
-                                      nbrs[0])
+                    with span("tln.model.fusion.middle", frame=t):
+                        lv, h[1] = fusion(lv, h[1], pc[1], counts[0],
+                                          is_first, nbrs[0])
                     pc[1] = counts[0]
                 if (not final) and seq and cut <= 1:
                     return None, pack_state(), early_out
-            lv = self.coarsens_list[i](lv, counts[i], links[i], nbrs[i + 1],
-                                       counts[i + 1])
+            with span(f"tln.model.coarsen{i}", frame=t):
+                lv = self.coarsens_list[i](lv, counts[i], links[i],
+                                           nbrs[i + 1], counts[i + 1])
 
         # ---- bottleneck ------------------------------------------------
-        for block in self.resnet_blocks_bottleneck:
-            lv = block(lv, nbrs[L], counts[L])
+        with span("tln.model.bottleneck", frame=t):
+            for block in self.resnet_blocks_bottleneck:
+                lv = block(lv, nbrs[L], counts[L])
         fusion = self._fusion(1)
         if fusion is not None:
-            lv, h[2] = fusion(lv, h[2], pc[2], counts[L], is_first, nbrs[L])
+            with span("tln.model.fusion.bottleneck", frame=t):
+                lv, h[2] = fusion(lv, h[2], pc[2], counts[L], is_first,
+                                  nbrs[L])
             pc[2] = counts[L]
         if (not final) and seq and cut <= 2:
             return None, pack_state(), early_out
@@ -310,33 +319,38 @@ class LNNSeq(nn.Module):
             lvl = L - 1 - i
             fine_v = skip_values.pop()
             skip_counts.pop()
-            up = self.finefy_list[i](lv, counts[lvl + 1], nbrs[lvl + 1],
-                                     links[lvl], counts[lvl])
-            lv = torch.cat([up, fine_v], dim=-1)
+            with span(f"tln.model.finefy{i}", frame=t):
+                up = self.finefy_list[i](lv, counts[lvl + 1], nbrs[lvl + 1],
+                                         links[lvl], counts[lvl])
+                lv = torch.cat([up, fine_v], dim=-1)
             if i == L - 1:
                 fusion = self._fusion(2)
                 if fusion is not None:
-                    lv, h[3] = fusion(lv, h[3], pc[3], counts[0], is_first,
-                                      nbrs[0])
+                    with span("tln.model.fusion.late", frame=t):
+                        lv, h[3] = fusion(lv, h[3], pc[3], counts[0],
+                                          is_first, nbrs[0])
                     pc[3] = counts[0]
                 if not final and seq:
                     return None, pack_state(), early_out
             if cfg.apply_all_up_resnets and i < L - 1:
-                for block in self.resnet_blocks_per_up_lvl_list[str(i)]:
-                    lv = block(lv, nbrs[lvl], counts[lvl])
+                with span("tln.model.up", frame=t):
+                    for block in self.resnet_blocks_per_up_lvl_list[str(i)]:
+                        lv = block(lv, nbrs[lvl], counts[lvl])
 
         # reference quirk: only the final stage's up resnets run, at level 0
-        for block in self.resnet_blocks_per_up_lvl_list[str(L - 1)]:
-            lv = block(lv, nbrs[0], counts[0])
+        with span("tln.model.up", frame=t):
+            for block in self.resnet_blocks_per_up_lvl_list[str(L - 1)]:
+                lv = block(lv, nbrs[0], counts[0])
 
-        sv = self.slice_fast_cuda(lv, dist.point_vertex, dist.point_bary,
-                                  dropout_keep)
-        logp = torch.log_softmax(sv, dim=-1)
-        caps = rt.capacities(L)
-        occupancy = torch.stack([torch.as_tensor(counts[l])
-                                 for l in range(L + 1)])
-        aux = {"nr_vertices": counts[0], "occupancy": occupancy,
-               "vertex_overflow": torch.stack(
-                   [counts[l] >= caps[l] for l in range(L + 1)]).any(),
-               "point_vertex": dist.point_vertex}
+        with span("tln.model.slice", frame=t):
+            sv = self.slice_fast_cuda(lv, dist.point_vertex, dist.point_bary,
+                                      dropout_keep)
+            logp = torch.log_softmax(sv, dim=-1)
+            caps = rt.capacities(L)
+            occupancy = torch.stack([torch.as_tensor(counts[l])
+                                     for l in range(L + 1)])
+            aux = {"nr_vertices": counts[0], "occupancy": occupancy,
+                   "vertex_overflow": torch.stack(
+                       [counts[l] >= caps[l] for l in range(L + 1)]).any(),
+                   "point_vertex": dist.point_vertex}
         return (logp, sv), pack_state(), aux

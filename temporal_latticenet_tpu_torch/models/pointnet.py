@@ -47,6 +47,7 @@ from ..ops import lattice_ops as lo
 from ..ops.segment import (segment_max_with_argmax,
                            segment_max_with_bary_packed, segment_mean,
                            sorted_packed_max)
+from ..utils.profiling import span
 from .blocks import GnRelu1x1, LatticeConv, Linear, torch_dtype
 from .fusion import make_fusion
 
@@ -258,7 +259,9 @@ class PointNetSeq(nn.Module):
                 rowsum = reduced[:, :half].abs().sum(dim=-1, keepdim=True)
                 reduced = torch.where(rowsum == 0.0, torch.full(
                     (), -9900.0, device=reduced.device), reduced)
-            reduced, new_h = self.fusion_module(reduced, h_early, prev_count,
-                                                count, is_first, nbr)
+            with span("tln.model.fusion.early"):
+                reduced, new_h = self.fusion_module(reduced, h_early,
+                                                    prev_count, count,
+                                                    is_first, nbr)
         reduced = lo.mask_rows(reduced, count)
         return self.last_conv(reduced, nbr, count), new_h

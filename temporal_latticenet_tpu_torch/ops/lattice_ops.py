@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from . import permutohedral as pm
 from .fused_simplex import fused_simplex_pack
 from .seg_scan import sorted_segment_scan
@@ -332,14 +333,15 @@ class _Gather8Sym(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dg):
-        (idx8,) = ctx.saved_tensors
-        cap, taps, cin = dg.shape
-        inv = idx8[:, list(_PAIR_3D)]
-        fi = inv * taps + torch.arange(taps, device=idx8.device)[None, :]
-        g = dg.reshape(cap * taps, cin)[fi]
-        acc = torch.where((inv > 0)[..., None], g.to(torch.float32),
-                          torch.zeros((), device=dg.device)).sum(dim=1)
-        return acc.to(dg.dtype), None
+        with span("tln.backward._Gather8Sym"):
+            (idx8,) = ctx.saved_tensors
+            cap, taps, cin = dg.shape
+            inv = idx8[:, list(_PAIR_3D)]
+            fi = inv * taps + torch.arange(taps, device=idx8.device)[None, :]
+            g = dg.reshape(cap * taps, cin)[fi]
+            acc = torch.where((inv > 0)[..., None], g.to(torch.float32),
+                              torch.zeros((), device=dg.device)).sum(dim=1)
+            return acc.to(dg.dtype), None
 
 
 def gather8_sym(values: torch.Tensor, idx8: torch.Tensor) -> torch.Tensor:
@@ -365,9 +367,10 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dg):
-        (idx,) = ctx.saved_tensors
-        flat = dg.reshape((idx.numel(),) + tuple(dg.shape[idx.dim():]))
-        return segment_sum(flat, idx.reshape(-1), ctx.rows), None
+        with span("tln.backward._GatherRows"):
+            (idx,) = ctx.saved_tensors
+            flat = dg.reshape((idx.numel(),) + tuple(dg.shape[idx.dim():]))
+            return segment_sum(flat, idx.reshape(-1), ctx.rows), None
 
 
 def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -502,7 +505,8 @@ class _SplatSorted(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out):
-        return _slice_impl(d_out, ctx.link), None
+        with span("tln.backward._SplatSorted"):
+            return _slice_impl(d_out, ctx.link), None
 
 
 class _SliceSorted(torch.autograd.Function):
@@ -517,7 +521,8 @@ class _SliceSorted(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_fine):
-        return _splat_sorted_impl(d_fine, ctx.link), None
+        with span("tln.backward._SliceSorted"):
+            return _splat_sorted_impl(d_fine, ctx.link), None
 
 
 def splat_to_coarse(fine_values: torch.Tensor, link: LevelLink,

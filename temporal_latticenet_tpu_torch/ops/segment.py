@@ -30,6 +30,7 @@ import os
 
 import torch
 
+from ..utils.profiling import span
 from .lattice_ops import segment_sum
 from .seg_scan import INT_MIN, sorted_segment_max_u32, sorted_segment_max_window
 
@@ -140,22 +141,23 @@ class _SortedPackedMax(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dmx, dbary_sel):
-        packed, best, bucket = ctx.saved_tensors
-        nb, c = best.shape
+        with span("tln.backward._SortedPackedMax"):
+            packed, best, bucket = ctx.saved_tensors
+            nb, c = best.shape
 
-        def pad(a):
-            return torch.cat([a, torch.zeros((1, c), dtype=a.dtype,
-                                             device=a.device)])
+            def pad(a):
+                return torch.cat([a, torch.zeros((1, c), dtype=a.dtype,
+                                                 device=a.device)])
 
-        b = bucket.clamp(max=nb)
-        sel_best = pad(best)[b]
-        winner = (packed == sel_best) & (sel_best != 0)
-        zero = torch.zeros((), dtype=dmx.dtype, device=dmx.device)
-        ddata = torch.where(winner, pad(dmx)[b], zero).to(ctx.data_dtype)
-        dbary = None
-        if ctx.needs_input_grad[1]:
-            dbary = torch.where(winner, pad(dbary_sel)[b], zero).sum(-1)
-        return ddata, dbary, None, None, None, None, None
+            b = bucket.clamp(max=nb)
+            sel_best = pad(best)[b]
+            winner = (packed == sel_best) & (sel_best != 0)
+            zero = torch.zeros((), dtype=dmx.dtype, device=dmx.device)
+            ddata = torch.where(winner, pad(dmx)[b], zero).to(ctx.data_dtype)
+            dbary = None
+            if ctx.needs_input_grad[1]:
+                dbary = torch.where(winner, pad(dbary_sel)[b], zero).sum(-1)
+            return ddata, dbary, None, None, None, None, None
 
 
 def sorted_packed_max(data, bary, live, head_count, bucket, tailpos,
@@ -199,16 +201,17 @@ class _SegmentMaxPacked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dmx, dbary_sel):
-        packed, best, ids = ctx.saved_tensors
-        sel_best = best[ids]
-        winner = ((packed.to(torch.int64) & 0xFFFFFFFF) == sel_best) \
-            & (sel_best != 0)
-        zero = torch.zeros((), dtype=dmx.dtype, device=dmx.device)
-        ddata = torch.where(winner, dmx[ids], zero).to(ctx.data_dtype)
-        dbary = None
-        if ctx.needs_input_grad[1]:
-            dbary = torch.where(winner, dbary_sel[ids], zero).sum(-1)
-        return ddata, dbary, None, None, None
+        with span("tln.backward._SegmentMaxPacked"):
+            packed, best, ids = ctx.saved_tensors
+            sel_best = best[ids]
+            winner = ((packed.to(torch.int64) & 0xFFFFFFFF) == sel_best) \
+                & (sel_best != 0)
+            zero = torch.zeros((), dtype=dmx.dtype, device=dmx.device)
+            ddata = torch.where(winner, dmx[ids], zero).to(ctx.data_dtype)
+            dbary = None
+            if ctx.needs_input_grad[1]:
+                dbary = torch.where(winner, dbary_sel[ids], zero).sum(-1)
+            return ddata, dbary, None, None, None
 
 
 def segment_max_with_bary_packed(data, bary, segment_ids, num_segments: int,

@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import permutohedral as pm
 from .fused_simplex import fused_simplex_pack
 from .lattice_ops import (DistributeOut, LevelLink, NeighborTable,
@@ -399,74 +400,86 @@ def build_sequence_lattice(positions: torch.Tensor, mask: torch.Tensor,
       want_row_rel: False when nothing reads ``row_rel_pos`` (it is then
         zeros).
     """
+    with span("tln.lattice.build"):
+        return _build(positions, mask, sigma, capacities, nr_downsamples,
+                      subtract_local_mean, nbr_caps, pn_values, want_row_rel)
+
+
+def _build(positions, mask, sigma, capacities, nr_downsamples,
+           subtract_local_mean, nbr_caps, pn_values, want_row_rel):
     t_frames, p, _ = positions.shape
     dp1 = 4
     cap0 = capacities[0]
 
-    rvalid = mask.repeat_interleave(dp1, dim=1)                  # (T, P*4)
-    y = pm.scale_positions(positions.reshape(t_frames * p, 3), sigma)
-    packed4, bary4 = fused_simplex_pack(y.contiguous(),
-                                        mask.reshape(-1).contiguous())
-    cand_packed = packed4.reshape(-1)
-    bary = bary4.reshape(t_frames, p * dp1)
-    pos_rows = positions.repeat_interleave(dp1, dim=1)           # (T, P*4, 3)
+    with span("tln.lattice.level0"):
+        rvalid = mask.repeat_interleave(dp1, dim=1)              # (T, P*4)
+        y = pm.scale_positions(positions.reshape(t_frames * p, 3), sigma)
+        packed4, bary4 = fused_simplex_pack(y.contiguous(),
+                                            mask.reshape(-1).contiguous())
+        cand_packed = packed4.reshape(-1)
+        bary = bary4.reshape(t_frames, p * dp1)
+        pos_rows = positions.repeat_interleave(dp1, dim=1)    # (T, P*4, 3)
 
-    if subtract_local_mean:
-        extra_rows, n_vals = None, 0
-        if pn_values is not None:
-            n_vals = pn_values.shape[-1]
-            vals_rows = pn_values.reshape(t_frames * p, n_vals) \
-                .repeat_interleave(dp1, dim=0)
-            extra_rows = _pack_pn_rows(vals_rows, bary.reshape(-1))
-        (packed0, birth0, row_idx, counts0, rel_flat, nr_points,
-         sorted_pn) = _union_with_birth_and_mean(
-            cand_packed, pos_rows.reshape(-1, 3), cap0, t_frames,
-            extra_rows=extra_rows, n_vals=n_vals,
-            skip_rel_unsort=not want_row_rel)
-        rel = rel_flat.reshape(t_frames, p * dp1, 3)
-        row_vertex = row_idx.reshape(t_frames, p * dp1)
-        row_valid = rvalid & (row_vertex > 0)
-    else:
-        cand_order = torch.arange(cand_packed.shape[0],
-                                  device=cand_packed.device)
-        packed0, birth0, row_idx, counts0 = _union_with_birth(
-            cand_packed, cand_order, cap0, t_frames)
-        row_vertex = row_idx.reshape(t_frames, p * dp1)
-        row_valid = rvalid & (row_vertex > 0)
-        rel = pos_rows * row_valid[..., None].to(torch.float32)
-        nr_points = sorted_pn = None
-    row_bary = torch.where(row_valid, bary, torch.zeros_like(bary))
+        if subtract_local_mean:
+            extra_rows, n_vals = None, 0
+            if pn_values is not None:
+                n_vals = pn_values.shape[-1]
+                vals_rows = pn_values.reshape(t_frames * p, n_vals) \
+                    .repeat_interleave(dp1, dim=0)
+                extra_rows = _pack_pn_rows(vals_rows, bary.reshape(-1))
+            (packed0, birth0, row_idx, counts0, rel_flat, nr_points,
+             sorted_pn) = _union_with_birth_and_mean(
+                cand_packed, pos_rows.reshape(-1, 3), cap0, t_frames,
+                extra_rows=extra_rows, n_vals=n_vals,
+                skip_rel_unsort=not want_row_rel)
+            rel = rel_flat.reshape(t_frames, p * dp1, 3)
+            row_vertex = row_idx.reshape(t_frames, p * dp1)
+            row_valid = rvalid & (row_vertex > 0)
+        else:
+            cand_order = torch.arange(cand_packed.shape[0],
+                                      device=cand_packed.device)
+            packed0, birth0, row_idx, counts0 = _union_with_birth(
+                cand_packed, cand_order, cap0, t_frames)
+            row_vertex = row_idx.reshape(t_frames, p * dp1)
+            row_valid = rvalid & (row_vertex > 0)
+            rel = pos_rows * row_valid[..., None].to(torch.float32)
+            nr_points = sorted_pn = None
+        row_bary = torch.where(row_valid, bary, torch.zeros_like(bary))
 
-    levels, links = [], []
-    levels.append(_build_level(packed0, birth0, counts0, t_frames,
-                               None if nbr_caps is None else nbr_caps[0]))
+        levels, links = [], []
+        levels.append(_build_level(packed0, birth0, counts0, t_frames,
+                                   None if nbr_caps is None else nbr_caps[0]))
     packed_f, birth_f = packed0, birth0
     for l in range(nr_downsamples):
-        cap_f, cap_c = capacities[l], capacities[l + 1]
-        valid_f = packed_f != PACKED_SENTINEL
-        # sentinel rows are zeroed first: their corners are masked anyway,
-        # and the float->int conversion of 2^31-sized keys is undefined
-        keys_f = torch.where(valid_f[:, None], unpack_keys(packed_f),
-                             torch.zeros((), dtype=torch.int32,
-                                         device=packed_f.device)
-                             ).to(torch.float32)
-        full = torch.cat([keys_f, -keys_f.sum(-1, keepdim=True)], dim=-1)
-        ckeys, cbary = pm.find_enclosing_simplex(full * 0.5)   # (Cf, 4, 3)
-        flat_c = torch.where(valid_f.repeat_interleave(dp1)[:, None],
-                             ckeys.reshape(-1, 3),
-                             torch.full((), SENTINEL, dtype=torch.int32,
-                                        device=ckeys.device))
-        packed_c, birth_c, c_row_idx, counts_c = _union_with_birth_explicit(
-            pack_keys(flat_c), birth_f.repeat_interleave(dp1), cap_c,
-            t_frames)
-        corner_idx = c_row_idx.reshape(cap_f, dp1)
-        corner_bary = torch.where(valid_f[:, None] & (corner_idx > 0), cbary,
-                                  torch.zeros_like(cbary))
-        links.append(augment_link_sorted(corner_idx, corner_bary, cap_c))
-        levels.append(_build_level(
-            packed_c, birth_c, counts_c, t_frames,
-            None if nbr_caps is None else nbr_caps[l + 1]))
-        packed_f, birth_f = packed_c, birth_c
+        with span(f"tln.lattice.level{l + 1}"):
+            cap_f, cap_c = capacities[l], capacities[l + 1]
+            valid_f = packed_f != PACKED_SENTINEL
+            # sentinel rows are zeroed first: their corners are masked
+            # anyway, and the float->int conversion of 2^31-sized keys is
+            # undefined
+            keys_f = torch.where(valid_f[:, None], unpack_keys(packed_f),
+                                 torch.zeros((), dtype=torch.int32,
+                                             device=packed_f.device)
+                                 ).to(torch.float32)
+            full = torch.cat([keys_f, -keys_f.sum(-1, keepdim=True)],
+                             dim=-1)
+            ckeys, cbary = pm.find_enclosing_simplex(full * 0.5)  # (Cf, 4, 3)
+            flat_c = torch.where(valid_f.repeat_interleave(dp1)[:, None],
+                                 ckeys.reshape(-1, 3),
+                                 torch.full((), SENTINEL, dtype=torch.int32,
+                                            device=ckeys.device))
+            packed_c, birth_c, c_row_idx, counts_c = \
+                _union_with_birth_explicit(pack_keys(flat_c),
+                                           birth_f.repeat_interleave(dp1),
+                                           cap_c, t_frames)
+            corner_idx = c_row_idx.reshape(cap_f, dp1)
+            corner_bary = torch.where(valid_f[:, None] & (corner_idx > 0),
+                                      cbary, torch.zeros_like(cbary))
+            links.append(augment_link_sorted(corner_idx, corner_bary, cap_c))
+            levels.append(_build_level(
+                packed_c, birth_c, counts_c, t_frames,
+                None if nbr_caps is None else nbr_caps[l + 1]))
+            packed_f, birth_f = packed_c, birth_c
 
     return SeqLattice(
         levels=tuple(levels), links=tuple(links), row_vertex=row_vertex,
@@ -480,6 +493,11 @@ def trim_sequence_lattice(lat: SeqLattice, trim_caps) -> SeqLattice:
     """Truncate a finalised SeqLattice to the row prefixes ``trim_caps``.
     Indices pointing past a cap belong to vertices unborn in the frames the
     trimmed view serves; they are remapped to the zero row 0."""
+    with span("tln.lattice.trim"):
+        return _trim(lat, trim_caps)
+
+
+def _trim(lat: SeqLattice, trim_caps) -> SeqLattice:
     levels = []
     for l, lvl in enumerate(lat.levels):
         c = trim_caps[l]

@@ -33,6 +33,7 @@ device: no step reads a tensor on the host.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -47,9 +48,13 @@ from ..models.losses import segmentation_loss
 from ..ops import lattice_ops as lo
 from ..ops import seq_lattice as sl
 from ..parallel import mesh as pmesh
+from ..utils.profiling import span
 from . import optim
 
 REMAT_MODES = ("none", "selective", "full")
+
+# the unit number each entry point's span carries (``utils/profiling``)
+_UNITS = itertools.count()
 
 
 def _resize_rows(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -161,6 +166,10 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
         return [which[site_level(cfg, s)] for s in SITES]
 
     def seq_forward(positions, values, mask, dropout_gen=None):
+        with span("tln.engine.sequence", unit=next(_UNITS)):
+            return run(positions, values, mask, dropout_gen)
+
+    def run(positions, values, mask, dropout_gen):
         positions = torch.as_tensor(positions, device=dev)
         values = torch.as_tensor(values, device=dev)
         mask = torch.as_tensor(mask, device=dev)
@@ -292,16 +301,20 @@ def make_streaming_inference(model: LNNSeq, cfg: ModelConfig,
 
     @torch.no_grad()
     def step_fn(positions, values, mask, state):
-        p, v, m = _frame_inputs(dev, positions, values, mask)
-        _, state, _ = model(state, positions=p, values=v, mask=m,
-                            final=False)
+        with span("tln.engine.stream_step", unit=next(_UNITS),
+                  frame=state.t):
+            p, v, m = _frame_inputs(dev, positions, values, mask)
+            _, state, _ = model(state, positions=p, values=v, mask=m,
+                                final=False)
         return state
 
     @torch.no_grad()
     def final_fn(positions, values, mask, state):
-        p, v, m = _frame_inputs(dev, positions, values, mask)
-        (logp, sv), state, aux = model(state, positions=p, values=v, mask=m,
-                                       final=True)
+        with span("tln.engine.stream_final", unit=next(_UNITS),
+                  frame=state.t):
+            p, v, m = _frame_inputs(dev, positions, values, mask)
+            (logp, sv), state, aux = model(state, positions=p, values=v,
+                                           mask=m, final=True)
         return logp, sv, state, aux
 
     return new_state_fn, step_fn, final_fn
@@ -350,26 +363,36 @@ def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
         """Distribute the frame, then build (full) or patch (incremental)
         every level's structures."""
         old = [tb.count for tb in state.tables]
-        t0, dist = lo.distribute(state.tables[0], positions, mask, rt.sigma,
-                                 subtract_local_mean=local_mean)
+        with span("tln.lattice.distribute"):
+            t0, dist = lo.distribute(state.tables[0], positions, mask,
+                                     rt.sigma, subtract_local_mean=local_mean)
         tabs = [t0]
         if not incremental:
-            nbrs, links = [lo.build_neighbor_table(t0)], []
+            with span("tln.lattice.neighbors0"):
+                nbrs, links = [lo.build_neighbor_table(t0)], []
             for i in range(L):
-                c, link = lo.grow_coarse_table(tabs[i], state.tables[i + 1])
+                with span(f"tln.lattice.coarse{i + 1}"):
+                    c, link = lo.grow_coarse_table(tabs[i],
+                                                   state.tables[i + 1])
                 tabs.append(c)
                 links.append(link)
-                nbrs.append(lo.build_neighbor_table(c))
+                with span(f"tln.lattice.neighbors{i + 1}"):
+                    nbrs.append(lo.build_neighbor_table(c))
             overflowed = fs.overflowed
         else:
             nbrs, links = list(fs.nbrs), list(fs.links)
-            nbrs[0] = lo.update_neighbor_table(t0, nbrs[0], old[0], max_new)
+            with span("tln.lattice.neighbors0"):
+                nbrs[0] = lo.update_neighbor_table(t0, nbrs[0], old[0],
+                                                   max_new)
             for i in range(L):
-                c, links[i] = lo.grow_coarse_table_incremental(
-                    tabs[i], state.tables[i + 1], old[i], links[i], max_new)
+                with span(f"tln.lattice.coarse{i + 1}"):
+                    c, links[i] = lo.grow_coarse_table_incremental(
+                        tabs[i], state.tables[i + 1], old[i], links[i],
+                        max_new)
                 tabs.append(c)
-                nbrs[i + 1] = lo.update_neighbor_table(c, nbrs[i + 1],
-                                                       old[i + 1], max_new)
+                with span(f"tln.lattice.neighbors{i + 1}"):
+                    nbrs[i + 1] = lo.update_neighbor_table(
+                        c, nbrs[i + 1], old[i + 1], max_new)
             grew = torch.stack([tb.count - o for tb, o in zip(tabs, old)])
             overflowed = fs.overflowed | (grew > max_new).any()
         fs = lo.FrameStructures(nbrs=tuple(nbrs), links=tuple(links),
@@ -378,11 +401,17 @@ def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
         return dataclasses.replace(state, tables=tuple(tabs)), fs, dist
 
     def make_step(incremental: bool, final: bool):
+        name = "tln.engine.stream_final" if final \
+            else "tln.engine.stream_step"
+
         @torch.no_grad()
         def fn(positions, values, mask, state, fs):
-            p, v, m = _frame_inputs(dev, positions, values, mask)
-            state, fs, dist = advance(state, p, m, fs, incremental)
-            out, state, aux = model(state, fs, dist, values=v, final=final)
+            with span(name, unit=next(_UNITS), frame=state.t):
+                p, v, m = _frame_inputs(dev, positions, values, mask)
+                with span("tln.lattice.frame", frame=state.t):
+                    state, fs, dist = advance(state, p, m, fs, incremental)
+                out, state, aux = model(state, fs, dist, values=v,
+                                        final=final)
             if final:
                 return out[0], out[1], state, fs, aux
             return state, fs
@@ -553,11 +582,13 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     def loss_one(batch: SeqBatch, i: int, gen=None):
         """The loss of sequence ``i`` of the batch, with the slice head's
         dropout drawn from ``gen`` (None: no dropout)."""
-        logp, _, aux = seq_fwd(batch.positions[i], batch.values[i],
-                               batch.mask[i], gen)
-        labels = torch.as_tensor(batch.labels[i][-1], device=dev)
-        mask = torch.as_tensor(batch.mask[i][-1], device=dev)
-        loss, parts = segmentation_loss(logp, labels, mask, ignore_index)
+        with span("tln.train.forward"):
+            logp, _, aux = seq_fwd(batch.positions[i], batch.values[i],
+                                   batch.mask[i], gen)
+        with span("tln.train.loss"):
+            labels = torch.as_tensor(batch.labels[i][-1], device=dev)
+            mask = torch.as_tensor(batch.mask[i][-1], device=dev)
+            loss, parts = segmentation_loss(logp, labels, mask, ignore_index)
         return loss, logp, parts, aux
 
     def batch_metrics(outs):
@@ -597,28 +628,32 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
         for i in range(b):
             gen = dropout_generator(dev, step, rank * b + i) if drop else None
             out = loss_one(batch, i, gen)
-            (out[0] / b).backward()
+            with span("tln.train.backward"):
+                (out[0] / b).backward()
             outs.append(out)
         # parameters the loss does not reach get a zero gradient, so that
         # AdamW still decays them, as the optax chain does
         for p in params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        metrics, logp = batch_metrics(outs)
+        with span("tln.train.loss"):
+            metrics, logp = batch_metrics(outs)
         if mesh is not None:
             pmesh.all_reduce_mean(mesh, [p.grad for p in params.values()])
             metrics = reduce_metrics(metrics)
         return metrics, logp
 
     def train_step(state: TrainState, batch: SeqBatch, lr_scale):
-        metrics, logp = gradients(batch, state.step)
-        gsq = torch.stack([(p.grad.float() ** 2).sum()
-                           for p in params.values()])
-        metrics["grad_norm"] = torch.sqrt(gsq.sum())
-        if watch_grads:
-            metrics["grad_norms"] = dict(zip(params, torch.sqrt(gsq)))
-        optim.set_lr_scale(state.optimizer, lr_scale)
-        state.optimizer.step()
+        with span("tln.engine.train_step", unit=next(_UNITS)):
+            metrics, logp = gradients(batch, state.step)
+            with span("tln.train.optimizer"):
+                gsq = torch.stack([(p.grad.float() ** 2).sum()
+                                   for p in params.values()])
+                metrics["grad_norm"] = torch.sqrt(gsq.sum())
+                if watch_grads:
+                    metrics["grad_norms"] = dict(zip(params, torch.sqrt(gsq)))
+                optim.set_lr_scale(state.optimizer, lr_scale)
+                state.optimizer.step()
         state.step += 1
         return state, logp, metrics
 
@@ -632,7 +667,8 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
         return logp, metrics
 
     def grad_step(batch: SeqBatch, step: int = 0):
-        metrics, _ = gradients(batch, step)
+        with span("tln.engine.train_step", unit=next(_UNITS)):
+            metrics, _ = gradients(batch, step)
         return metrics["loss"], {k: p.grad for k, p in params.items()}
 
     @torch.no_grad()
