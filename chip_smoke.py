@@ -60,15 +60,22 @@ Phases, in order; any failure exits non-zero without the final line:
     49152/24576/12288 without trims), through the plain path
     (``make_streaming_inference``: every frame's structures built in full)
     and the incremental one (``make_streaming_inference_incremental``,
-    ``max_new`` 8192).  Each path: the launches of every kernel over one
-    counted sequence (K1 once per frame), ``STREAM_SEQS`` sequences with
+    ``max_new`` 8192).  Each path: the launches of every kernel a sequence
+    (K1 once per frame; the incremental path's as its wrappers count them
+    over one sequence, the plain path's, which replays CUDA graphs, by
+    kernel name in the profiled sequences), ``STREAM_SEQS`` sequences with
     the milliseconds of every frame (host clock, synchronised around each
     frame), the host syncs inside the frames (``torch.cuda`` sync debug
     mode), the device time per frame by kernel name and the busy share
     under ``torch.profiler``, peak memory, and each level's growth per
     frame.  The incremental path must not overflow, and the final frame's
     log-probabilities must agree with the offline forward's within the bf16
-    tolerance, equal each other, and equal a second run's;
+    tolerance, equal each other, and equal a second run's.  Then the plain
+    path served from CUDA graphs against the same path forced eager over
+    two sequences (``stream_graphs``): bit-equality, or the largest
+    log-probability difference and the label flips, the graph counters
+    (which must read 3 captures and every later frame replayed), each
+    path's median frame ms, peak memory and host syncs;
 11. the streaming path on the card and on the CPU at the reduced geometry
     without trims: vertex tables, row indices, neighbor tables and corner
     indices of every frame equal, log-probabilities of both paths within
@@ -254,6 +261,8 @@ STREAM_RT = dict(max_points=131072, capacity_level0=49152,
                  capacity_decay=0.5, min_capacity=8192, sigma=0.6)
 MAX_NEW = 8192         # the incremental path's growth bound per frame
 STREAM_SEQS = 12       # timed sequences per streaming path
+GRAPH_SEQS = 2         # sequences of the graphs' check against eager
+GRAPH_ROUNDS = 3       # timed rounds over them per path
 PROFILE_STREAM_SEQS = 2
 # the sorted accumulate of index_put_ (autograd's gather backward and the
 # port's segment_sum on CUDA): no single launch of it in the training step
@@ -463,6 +472,18 @@ def lost_launches(events, launched: dict) -> dict:
             if seen.get(k, 0) < n}
 
 
+def traced_launches(events, calls: int) -> dict:
+    """Launches of each of K1-K5 per call, counted by kernel name in
+    ``events`` (K3 by its ``seg_sum_tails_scan`` kernel alone): what a
+    CUDA graph's replay launched, which no wrapper counts."""
+    seen = {}
+    for e in events:
+        k = hand_written(e.name)
+        if k and (k != "seg_sum_tails" or "seg_sum_tails_scan" in e.name):
+            seen[k] = seen.get(k, 0) + 1
+    return {k: seen.get(k, 0) / calls for k in KERNELS}
+
+
 # windows that lost device events and were taken again: (seen, launched)
 PROFILER_RETRIES: list = []
 
@@ -474,13 +495,14 @@ def profile_retry_pause(tries: int) -> None:
     time.sleep(PROFILE_RETRY_S * 2 ** (tries - 1))
 
 
-def device_events(fn, calls: int):
+def device_events(fn, calls: int, launched=None):
     """The device-side events (kernels, copies, fills) of ``calls`` calls of
     ``fn`` under ``profiling.window``, and the wall microseconds of the
     window.  Now and then a session records no device events, or fewer
-    kernels of K1-K5 than were launched in it: such a window is taken
-    again, after a growing pause, up to ``PROFILE_TRIES`` times in all, and
-    then fails."""
+    kernels of K1-K5 than were launched in it (as the wrappers counted
+    them, or ``launched`` where the calls replay CUDA graphs, whose kernels
+    no wrapper counts): such a window is taken again, after a growing
+    pause, up to ``PROFILE_TRIES`` times in all, and then fails."""
     from temporal_latticenet_tpu_torch.ops import _cuda
     from temporal_latticenet_tpu_torch.utils import profiling
 
@@ -492,10 +514,10 @@ def device_events(fn, calls: int):
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        launched = {k: n - before[k]
-                    for k, n in _cuda.launch_counts().items()}
+        counted = {k: n - before[k]
+                   for k, n in _cuda.launch_counts().items()}
         events = device_side(prof)
-        lost = lost_launches(events, launched)
+        lost = lost_launches(events, launched or counted)
         if events and not lost:
             return events, wall_us
         PROFILER_RETRIES.append(lost or "no device events")
@@ -1411,7 +1433,10 @@ def logp_agreement(a, b, mask_last, what):
 
 def stream_path(dev, model, frames, incremental: bool):
     """Phase 10 for one streaming path at full width (also phase 16's, for
-    its experiments: the path runs ``model.cfg``)."""
+    its experiments: the path runs ``model.cfg``).  The plain path's
+    launches come from the profiled sequences (its frames replay CUDA
+    graphs, which launch their kernels without the wrappers), the
+    incremental path's from the wrappers' counts over one sequence."""
     from temporal_latticenet_tpu_torch.ops import _cuda
 
     n = len(frames[0])
@@ -1433,9 +1458,6 @@ def stream_path(dev, model, frames, incremental: bool):
     torch.cuda.synchronize()
     launches = _cuda.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches["fused_simplex_pack"] != n:
-        raise AssertionError(f"K1 launched {launches['fused_simplex_pack']} "
-                             f"times in {n} frames")
     occ = check_stream_output(logp, aux, STREAM_RT, frames[2][-1])
     overflowed = bool(carry[1].overflowed) if incremental else None
     if overflowed:
@@ -1465,8 +1487,16 @@ def stream_path(dev, model, frames, incremental: bool):
                       first_frame_quartiles_ms=quartiles(first),
                       later_non_final_ms=statistics.median(later),
                       later_non_final_quartiles_ms=quartiles(later))
+    k1 = {"fused_simplex_pack": PROFILE_STREAM_SEQS * n}
     events, wall_us = device_events(
-        lambda: run_stream(fns, frames, times=[]), PROFILE_STREAM_SEQS)
+        lambda: run_stream(fns, frames, times=[]), PROFILE_STREAM_SEQS,
+        launched=None if incremental else k1)
+    if not incremental:
+        # the plain path replays CUDA graphs: count its kernels by name
+        launches = traced_launches(events, PROFILE_STREAM_SEQS)
+    if launches["fused_simplex_pack"] != n:
+        raise AssertionError(f"K1 launched {launches['fused_simplex_pack']} "
+                             f"times in {n} frames")
     return logp, dict(
         **timing, frame_ms_all=ms.tolist(), sequences=STREAM_SEQS,
         max_new=max_new if incremental else None, overflowed=overflowed,
@@ -1476,6 +1506,68 @@ def stream_path(dev, model, frames, incremental: bool):
         counts_per_frame=levels.tolist(), growth_per_frame=growth.tolist(),
         profiled_sequences=PROFILE_STREAM_SEQS,
         **device_summary(events, wall_us, PROFILE_STREAM_SEQS * n, "frame"))
+
+
+def stream_graphs(dev, model):
+    """The plain path served from CUDA graphs against the same path forced
+    eager, on ``GRAPH_SEQS`` sequences of phase 10's geometry: each path
+    runs every sequence once (the graphs' warm-ups and captures), then
+    ``GRAPH_ROUNDS`` more times with every frame timed (synchronised around
+    it).  The last round's final log-probabilities, logits, aux and final
+    states are compared bit for bit; where they differ, the largest
+    log-probability difference and the valid points whose label differs.
+    Also the graph counters, each path's median frame ms, peak memory and
+    host syncs inside one sequence's frames."""
+    seqs = [tuple(torch.as_tensor(a, device=dev)
+                  for a in lidar(STREAM_RT["max_points"], seed=s))
+            for s in range(GRAPH_SEQS)]
+    res, finals = {}, {}
+    for name, graphs in (("graphs", True), ("eager", False)):
+        fns = stream_fns(model, STREAM_RT, False)
+        fns[1].graphs.card = graphs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for seq in seqs:
+            run_stream(fns, seq)
+        secs = []
+        for _ in range(GRAPH_ROUNDS):
+            finals[name] = [run_stream(fns, seq, times=secs) for seq in seqs]
+        syncs = host_syncs(lambda: run_stream(fns, seqs[0]))
+        res[name] = dict(
+            frame_ms=statistics.median(secs) * 1e3,
+            frame_quartiles_ms=[x * 1e3 for x in quartiles(secs)],
+            counts=dict(fns[1].graphs.counts),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            host_syncs_per_sequence=syncs)
+        del fns
+    diffs = []
+    for seq, (lp_g, aux_g, carry_g), (lp_e, aux_e, carry_e) in zip(
+            seqs, finals["graphs"], finals["eager"]):
+        sg, se = carry_g[0], carry_e[0]
+        equal = bool(torch.equal(lp_g, lp_e)) and all(
+            torch.equal(aux_g[k], aux_e[k]) for k in aux_e) and all(
+            torch.equal(a, b) for a, b in zip(sg.h, se.h)) and all(
+            torch.equal(getattr(a, f), getattr(b, f))
+            for a, b in zip(sg.tables, se.tables)
+            for f in ("keys", "packed", "sorted_packed", "sorted_to_stable",
+                      "count"))
+        valid = seq[2][-1]
+        d = dict(bit_equal=equal,
+                 logp_max_abs_diff=float((lp_g - lp_e)[valid].abs().max()),
+                 label_flips=int((lp_g.argmax(-1) != lp_e.argmax(-1))[valid]
+                                 .sum()),
+                 points=int(valid.sum()))
+        diffs.append(d)
+    n = len(seqs) * FRAMES
+    want = dict(captures=3, replays=n * (1 + GRAPH_ROUNDS) - 3 + FRAMES,
+                eager=3)
+    res.update(sequences=diffs, rounds=GRAPH_ROUNDS,
+               bit_equal=all(d["bit_equal"] for d in diffs),
+               expected_counts=want)
+    if res["graphs"]["counts"] != want:
+        raise AssertionError(f"graph counters {res['graphs']['counts']}, "
+                             f"expected {want}")
+    return res
 
 
 def streaming_flagship(dev, state_dict):
@@ -1493,8 +1585,9 @@ def streaming_flagship(dev, state_dict):
     del offline
     logp_p, plain = stream_path(dev, model, frames, incremental=False)
     logp_i, inc = stream_path(dev, model, frames, incremental=True)
+    graphs = stream_graphs(dev, model)
     last = data[2][-1]
-    res = dict(plain=plain, incremental=inc,
+    res = dict(plain=plain, incremental=inc, graphs_vs_eager=graphs,
                plain_vs_offline=logp_stats(logp_p, logp_off, last),
                incremental_vs_offline=logp_stats(logp_i, logp_off, last),
                incremental_bit_equal_plain=bool(torch.equal(logp_i, logp_p)),
@@ -3125,6 +3218,15 @@ def main(argv=None) -> int:
                     f"syncs {r['host_syncs_per_sequence']}; peak "
                     f"{r['peak_mem_gb']:.2f} GB; growth "
                     f"{r['growth_per_frame']}")
+            g = stream["graphs_vs_eager"]
+            log(f"[streaming] graphs vs eager: bit-equal {g['bit_equal']} "
+                f"{json.dumps(g['sequences'])}; frame ms "
+                f"{g['graphs']['frame_ms']:.2f} graphs / "
+                f"{g['eager']['frame_ms']:.2f} eager on {dline}; counters "
+                f"{g['graphs']['counts']}; peak {g['graphs']['peak_mem_gb']:.2f}"
+                f" / {g['eager']['peak_mem_gb']:.2f} GB; host syncs "
+                f"{g['graphs']['host_syncs_per_sequence']} / "
+                f"{g['eager']['host_syncs_per_sequence']}")
         phase("streaming_card_vs_cpu", lambda: streaming_card_vs_cpu(dev))
         torch.cuda.empty_cache()
         kinds = phase("all_kinds", lambda: all_kinds(dev, data))

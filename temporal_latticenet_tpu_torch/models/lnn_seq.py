@@ -14,11 +14,12 @@ A frame takes its lattice structure from one of three sources: the
 precomputed whole-sequence lattice of ``ops.seq_lattice`` (the offline
 path, with the batched pointnet's reduced tensor or, on the non-batched
 route, the frame's ``DistributeOut`` and values; the state holds no
-tables), the streaming incremental path's ``FrameStructures`` with the
-frame's ``DistributeOut`` (built by the engine), or neither: the frame is
+tables), the streaming paths' ``FrameStructures`` with the frame's
+``DistributeOut`` (built by the engine), or neither: the frame is
 distributed onto the per-level vertex tables carried in the state, and
-every level's neighbor table and coarse link is built in full.  Without a
-pre-reduced tensor the pointnet runs per frame.
+every level's neighbor table and coarse link is built in full
+(``lattice_ops.advance_frame``).  Without a pre-reduced tensor the
+pointnet runs per frame.
 """
 
 from __future__ import annotations
@@ -191,6 +192,12 @@ class LNNSeq(nn.Module):
             for m in sites.values():
                 m.sown = None
 
+    @property
+    def sowing(self) -> bool:
+        """Whether a :meth:`sow_aux` block is open."""
+        return any(getattr(m, "sown", None) is not None
+                   for m in self.recurrent_fusion_modules.values())
+
     def _fusion(self, slot: int):
         key = str(slot)
         return (self.recurrent_fusion_modules[key]
@@ -215,22 +222,10 @@ class LNNSeq(nn.Module):
                     list(seqlat.links),
                     [seqlat.levels[l].counts[t] for l in range(L + 1)],
                     dist, state.tables)
-        tables = list(state.tables)
-        with span("tln.lattice.distribute"):
-            tables[0], dist = lo.distribute(
-                tables[0], positions, mask, self.rt.sigma,
-                subtract_local_mean=subtract_local_mean(self.cfg))
-        with span("tln.lattice.neighbors0"):
-            nbrs, links = [lo.build_neighbor_table(tables[0])], []
-        for i in range(L):
-            with span(f"tln.lattice.coarse{i + 1}"):
-                tables[i + 1], link = lo.grow_coarse_table(tables[i],
-                                                           tables[i + 1])
-            links.append(link)
-            with span(f"tln.lattice.neighbors{i + 1}"):
-                nbrs.append(lo.build_neighbor_table(tables[i + 1]))
-        return (nbrs, links, [tb.count for tb in tables], dist,
-                tuple(tables))
+        tables, fs, dist = lo.advance_frame(
+            state.tables, positions, mask, self.rt.sigma,
+            subtract_local_mean(self.cfg))
+        return list(fs.nbrs), list(fs.links), list(fs.counts), dist, tables
 
     def forward(self, state: SeqState, seqlat=None, dist=None,
                 pre_reduced=None, final: bool = True, positions=None,

@@ -8,7 +8,10 @@ use into ``build/kernels/`` at the repository root, named by a hash of the
 sources and flags, one ``nvcc`` per source, all started together.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched the CUDA
-kernel (never the plain PyTorch path).
+kernel (never the plain PyTorch path).  A call under CUDA-graph capture
+records the kernel into the graph and launches nothing, so it is not
+counted; a graph's replay launches the kernel without calling the wrapper,
+and is not counted either (a profiler trace names the replayed kernels).
 """
 
 from __future__ import annotations
@@ -54,6 +57,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of wrapper ``name``, unless the current stream is
+    capturing a CUDA graph (the call launched nothing)."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -122,5 +122,5 @@ def fused_simplex_pack(y: torch.Tensor, mask: torch.Tensor):
     err = fn(y.data_ptr(), mask.data_ptr(), n, packed.data_ptr(),
              bary.data_ptr(), _cuda.stream_ptr())
     _cuda.check("fused_simplex", err, "fused_simplex_pack")
-    _cuda.LAUNCHES["fused_simplex_pack"] += 1
+    _cuda.count_launch("fused_simplex_pack")
     return packed, bary

@@ -90,8 +90,9 @@ class LevelLink:
 
 @dataclasses.dataclass
 class FrameStructures:
-    """One frame's lattice structures on the streaming incremental path,
-    built by the engine between frames and handed to the model.
+    """One frame's lattice structures on the streaming paths
+    (:func:`advance_frame`), built by the engine between frames and handed
+    to the model.
 
     ``overflowed`` turns True once a frame's growth at some level exceeded
     the incremental update's ``max_new`` bound: the vertices beyond it have
@@ -302,6 +303,53 @@ def grow_coarse_table_incremental(fine_table: VertexTable,
     return new_coarse, LevelLink(
         corner_idx=scatter_or_drop(link.corner_idx, dst, corner_idx),
         corner_bary=scatter_or_drop(link.corner_bary, dst, corner_bary))
+
+
+def advance_frame(tables, positions: torch.Tensor, point_mask: torch.Tensor,
+                  sigma: float, subtract_local_mean: bool = True, fs=None,
+                  max_new=None):
+    """One streamed frame's structures: distribute the frame onto the
+    carried per-level vertex ``tables``, then build every level's neighbor
+    table and coarse link in full (``max_new`` None) or patch ``fs``'s for
+    the at most ``max_new`` new vertices of each level (the incremental
+    path; a level that grew by more sets the sticky ``overflowed``).
+    Returns (the new tables, ``FrameStructures``, ``DistributeOut``)."""
+    levels = len(tables) - 1
+    old = [tb.count for tb in tables]
+    with span("tln.lattice.distribute"):
+        t0, dist = distribute(tables[0], positions, point_mask, sigma,
+                              subtract_local_mean=subtract_local_mean)
+    tabs = [t0]
+    if max_new is None:
+        with span("tln.lattice.neighbors0"):
+            nbrs, links = [build_neighbor_table(t0)], []
+        for i in range(levels):
+            with span(f"tln.lattice.coarse{i + 1}"):
+                c, link = grow_coarse_table(tabs[i], tables[i + 1])
+            tabs.append(c)
+            links.append(link)
+            with span(f"tln.lattice.neighbors{i + 1}"):
+                nbrs.append(build_neighbor_table(c))
+        overflowed = (fs.overflowed if fs is not None else
+                      torch.zeros((), dtype=torch.bool,
+                                  device=positions.device))
+    else:
+        nbrs, links = list(fs.nbrs), list(fs.links)
+        with span("tln.lattice.neighbors0"):
+            nbrs[0] = update_neighbor_table(t0, nbrs[0], old[0], max_new)
+        for i in range(levels):
+            with span(f"tln.lattice.coarse{i + 1}"):
+                c, links[i] = grow_coarse_table_incremental(
+                    tabs[i], tables[i + 1], old[i], links[i], max_new)
+            tabs.append(c)
+            with span(f"tln.lattice.neighbors{i + 1}"):
+                nbrs[i + 1] = update_neighbor_table(c, nbrs[i + 1],
+                                                    old[i + 1], max_new)
+        grew = torch.stack([tb.count - o for tb, o in zip(tabs, old)])
+        overflowed = fs.overflowed | (grew > max_new).any()
+    return tuple(tabs), FrameStructures(
+        nbrs=tuple(nbrs), links=tuple(links),
+        counts=tuple(tb.count for tb in tabs), overflowed=overflowed), dist
 
 
 def mask_rows(values: torch.Tensor, count) -> torch.Tensor:

@@ -227,7 +227,7 @@ def sorted_segment_scan(head_count, x: torch.Tensor,
              q, c, code, plan.vw, plan.w, plan.ntiles, plan.ncb,
              _cuda.stream_ptr())
     _cuda.check("seg_scan", err, "sorted_segment_scan")
-    _cuda.LAUNCHES["sorted_segment_scan"] += 1
+    _cuda.count_launch("sorted_segment_scan")
     return out
 
 
@@ -267,7 +267,7 @@ def seg_sum_tails(head_count: torch.Tensor, x: torch.Tensor,
              ends.data_ptr(), state.data_ptr(), desc.data_ptr(), plan.vw,
              plan.w, plan.ntiles, plan.ncb, out.data_ptr(), _cuda.stream_ptr())
     _cuda.check("seg_sum_tails", err, "seg_sum_tails")
-    _cuda.LAUNCHES["seg_sum_tails"] += 1
+    _cuda.count_launch("seg_sum_tails")
     return out
 
 
@@ -294,7 +294,7 @@ def sorted_segment_max_u32(head_count: torch.Tensor,
              state.data_ptr(), q, c, plan.vw, plan.w, plan.ntiles, plan.ncb,
              _cuda.stream_ptr())
     _cuda.check("seg_max", err, "sorted_segment_max_u32")
-    _cuda.LAUNCHES["sorted_segment_max_u32"] += 1
+    _cuda.count_launch("sorted_segment_max_u32")
     return out
 
 
@@ -326,5 +326,5 @@ def sorted_segment_max_window(head_count: torch.Tensor, x: torch.Tensor,
     err = fn(head_count.data_ptr(), x.data_ptr(), out.data_ptr(), q, c,
              window, _cuda.stream_ptr())
     _cuda.check("seg_max_window", err, "sorted_segment_max_window")
-    _cuda.LAUNCHES["sorted_segment_max_window"] += 1
+    _cuda.count_launch("sorted_segment_max_window")
     return out

@@ -27,7 +27,10 @@ the vertex tables and fusion states carry over between frames, and each
 frame is distributed onto the tables (kernel K1) and runs the network on
 per-frame structures, built in full every frame or, on the incremental
 path, updated for the new vertices only.  Its steps keep every count on the
-device: no step reads a tensor on the host.
+device: no step reads a tensor on the host.  On the card the plain path
+serves its frames by replaying CUDA graphs of the frame's own code (one of
+the lattice part, one of the network part), so that the host launches two
+graphs a frame instead of some 2,000 operations.
 """
 
 from __future__ import annotations
@@ -42,13 +45,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig, RuntimeConfig
 from ..device import resolve_device
-from ..models.lnn_seq import SITES, LNNSeq, init_state, site_level
+from ..models.lnn_seq import SITES, LNNSeq, SeqState, init_state, site_level
 from ..models.pointnet import subtract_local_mean
 from ..models.losses import segmentation_loss
 from ..ops import lattice_ops as lo
 from ..ops import seq_lattice as sl
 from ..parallel import mesh as pmesh
-from ..utils.profiling import span
+from ..utils.profiling import span, without_spans
 from . import optim
 
 REMAT_MODES = ("none", "selective", "full")
@@ -281,42 +284,197 @@ def _frame_inputs(dev, positions, values, mask):
                  for a in (positions, values, mask))
 
 
+def _advance(cfg: ModelConfig, rt: RuntimeConfig, state: SeqState,
+             positions, mask, fs=None, max_new=None):
+    """``lattice_ops.advance_frame`` on the state's tables: (the state with
+    the new tables, FrameStructures, DistributeOut)."""
+    tables, fs, dist = lo.advance_frame(
+        state.tables, positions, mask, rt.sigma, subtract_local_mean(cfg),
+        fs, max_new)
+    return dataclasses.replace(state, tables=tables), fs, dist
+
+
+def _map_table(fn, table):
+    return dataclasses.replace(table, **{
+        f.name: fn(getattr(table, f.name))
+        for f in dataclasses.fields(table)})
+
+
+def _cloner():
+    """A clone function that clones each tensor once, so that outputs which
+    share a tensor (a fusion site's count is its level's table count) share
+    its clone; anything else passes through."""
+    memo = {}
+
+    def clone(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if id(x) not in memo:
+            memo[id(x)] = x.clone()
+        return memo[id(x)]
+    return clone
+
+
+def _capture(fn, pool):
+    """``fn()`` captured as a CUDA graph whose memory comes from ``pool``.
+    Returns (the graph, fn's outputs: tensors that each replay writes
+    anew)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    return graph, out
+
+
+class _FrameGraphs:
+    """One key's two CUDA graphs, the frame's lattice part (distribute and
+    every level's structures) and its network part (the model on them), and
+    their static inputs and outputs.  The network graph reads the lattice
+    graph's outputs in place, so the two replay in turn with nothing in
+    between; the outputs are cloned before anything else replays."""
+
+    def __init__(self, model: LNNSeq, cfg, rt, p, v, m, state, final: bool,
+                 pool):
+        self.final = final
+        self.p, self.v, self.m = p.clone(), v.clone(), m.clone()
+        self.state = SeqState(
+            h=tuple(x.clone() for x in state.h),
+            prev_counts=tuple(c.clone() if isinstance(c, torch.Tensor)
+                              else c for c in state.prev_counts),
+            t=state.t,
+            tables=tuple(_map_table(torch.clone, tb) for tb in state.tables))
+        with without_spans():
+            self.lattice, self.structures = _capture(
+                lambda: _advance(cfg, rt, self.state, self.p, self.m), pool)
+            self.network, self.out = _capture(
+                lambda: model(*self.structures, values=self.v, final=final),
+                pool)
+
+    def __call__(self, p, v, m, state: SeqState):
+        """The frame's (out, new state, aux), all fresh tensors; aux is
+        None on a non-final frame."""
+        with span("tln.lattice.frame", frame=state.t):
+            self.p.copy_(p)
+            self.m.copy_(m)
+            for dst, src in zip(self.state.tables, state.tables):
+                for f in dataclasses.fields(dst):
+                    getattr(dst, f.name).copy_(getattr(src, f.name))
+            self.lattice.replay()
+        with span("tln.model.frame", frame=state.t):
+            self.v.copy_(v)
+            for dst, src in zip(self.state.h + self.state.prev_counts,
+                                state.h + state.prev_counts):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+            self.network.replay()
+            out, new, aux = self.out
+            clone = _cloner()
+            new = SeqState(h=tuple(map(clone, new.h)),
+                           prev_counts=tuple(map(clone, new.prev_counts)),
+                           t=state.t + 1,
+                           tables=tuple(_map_table(clone, tb)
+                                        for tb in new.tables))
+            if self.final:
+                out = tuple(map(clone, out))
+                aux = {k: clone(x) for k, x in aux.items()}
+            else:
+                aux = None
+        return out, new, aux
+
+
+class StreamGraphs:
+    """The plain stream's frames as CUDA graphs.
+
+    A frame's work is fixed by its key: first frame or not, early return or
+    final, the shapes and dtypes of the frame and of the fusion states, and
+    the fusion sites' prev_counts that are still Python numbers.  The first
+    frame of a key runs eagerly (its warm-up: every lazily made constant
+    and library handle exists afterwards), then the key's two graphs
+    (``_FrameGraphs``) are captured, sharing one memory pool, with spans
+    muted; every later frame of the key copies its inputs into the graphs'
+    static buffers and replays them.  Frames run eagerly off the card
+    (``card``, the model's device) and inside ``LNNSeq.sow_aux`` (a replay
+    makes no Python-side records).  The step functions that call it run
+    without autograd, which a replay would not record.
+
+    ``counts``: ``captures`` (keys captured), ``replays`` and ``eager``
+    (frames served each way)."""
+
+    def __init__(self, model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig):
+        self.model, self.cfg, self.rt = model, cfg, rt
+        self.card = model.device.type == "cuda"
+        self.graphs = {}
+        self.pool = None
+        self.counts = {"captures": 0, "replays": 0, "eager": 0}
+
+    def key(self, p, v, m, state: SeqState, final: bool):
+        return (state.t == 0, final,
+                tuple((x.shape, x.dtype) for x in (p, v, m, *state.h)),
+                tuple(None if isinstance(c, torch.Tensor) else c
+                      for c in state.prev_counts))
+
+    def __call__(self, name: str, p, v, m, state: SeqState, final: bool):
+        """Serve one frame inside the engine span ``name``; returns the
+        model's (out, new state, aux), aux None on a replayed non-final
+        frame."""
+        replayable = self.card and not self.model.sowing
+        key = self.key(p, v, m, state, final) if replayable else None
+        graphs = self.graphs.get(key)
+        with span(name, unit=next(_UNITS), frame=state.t,
+                  graph=int(graphs is not None)):
+            if graphs is not None:
+                self.counts["replays"] += 1
+                return graphs(p, v, m, state)
+            self.counts["eager"] += 1
+            with span("tln.lattice.frame", frame=state.t):
+                new, fs, dist = _advance(self.cfg, self.rt, state, p, m)
+            out = self.model(new, fs, dist, values=v, final=final)
+        if replayable:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            self.graphs[key] = _FrameGraphs(self.model, self.cfg, self.rt,
+                                            p, v, m, state, final, self.pool)
+            self.counts["captures"] += 1
+        return out
+
+
 def make_streaming_inference(model: LNNSeq, cfg: ModelConfig,
                              rt: RuntimeConfig):
     """Online (frame-at-a-time) inference: every frame is distributed onto
     the carried vertex tables and builds every level's neighbor table and
-    coarse link in full.
+    coarse link in full, then runs the network on those structures.  On the
+    card a frame is served by replaying the CUDA graphs of its key
+    (:class:`StreamGraphs`).
 
     Returns ``(new_state_fn, step_fn, final_fn)``:
       new_state_fn()                        -> fresh SeqState with tables
       step_fn(pos, vals, mask, state)       -> state (early return)
       final_fn(pos, vals, mask, state)      -> (logp, logits, state, aux)
     Frames are (P, 3), (P, V), (P,), numpy arrays or tensors; they move to
-    the model's device.
+    the model's device.  Every tensor returned is fresh: a later call
+    changes none.  ``step_fn.graphs`` (also ``final_fn.graphs``) is the
+    :class:`StreamGraphs`, with its counters.
     """
     dev = model.device
+    cache = StreamGraphs(model, cfg, rt)
 
     def new_state_fn():
         return init_state(cfg, rt, dev, tables=True)
 
     @torch.no_grad()
     def step_fn(positions, values, mask, state):
-        with span("tln.engine.stream_step", unit=next(_UNITS),
-                  frame=state.t):
-            p, v, m = _frame_inputs(dev, positions, values, mask)
-            _, state, _ = model(state, positions=p, values=v, mask=m,
-                                final=False)
+        p, v, m = _frame_inputs(dev, positions, values, mask)
+        _, state, _ = cache("tln.engine.stream_step", p, v, m, state,
+                            final=False)
         return state
 
     @torch.no_grad()
     def final_fn(positions, values, mask, state):
-        with span("tln.engine.stream_final", unit=next(_UNITS),
-                  frame=state.t):
-            p, v, m = _frame_inputs(dev, positions, values, mask)
-            (logp, sv), state, aux = model(state, positions=p, values=v,
-                                           mask=m, final=True)
+        p, v, m = _frame_inputs(dev, positions, values, mask)
+        (logp, sv), state, aux = cache("tln.engine.stream_final", p, v, m,
+                                       state, final=True)
         return logp, sv, state, aux
 
+    step_fn.graphs = final_fn.graphs = cache
     return new_state_fn, step_fn, final_fn
 
 
@@ -341,7 +499,6 @@ def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
     dev = model.device
     L = cfg.nr_downsamples
     caps = rt.capacities(L)
-    local_mean = subtract_local_mean(cfg)
 
     def new_fn():
         fs = lo.FrameStructures(
@@ -359,47 +516,6 @@ def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
             overflowed=torch.zeros((), dtype=torch.bool, device=dev))
         return init_state(cfg, rt, dev, tables=True), fs
 
-    def advance(state, positions, mask, fs, incremental: bool):
-        """Distribute the frame, then build (full) or patch (incremental)
-        every level's structures."""
-        old = [tb.count for tb in state.tables]
-        with span("tln.lattice.distribute"):
-            t0, dist = lo.distribute(state.tables[0], positions, mask,
-                                     rt.sigma, subtract_local_mean=local_mean)
-        tabs = [t0]
-        if not incremental:
-            with span("tln.lattice.neighbors0"):
-                nbrs, links = [lo.build_neighbor_table(t0)], []
-            for i in range(L):
-                with span(f"tln.lattice.coarse{i + 1}"):
-                    c, link = lo.grow_coarse_table(tabs[i],
-                                                   state.tables[i + 1])
-                tabs.append(c)
-                links.append(link)
-                with span(f"tln.lattice.neighbors{i + 1}"):
-                    nbrs.append(lo.build_neighbor_table(c))
-            overflowed = fs.overflowed
-        else:
-            nbrs, links = list(fs.nbrs), list(fs.links)
-            with span("tln.lattice.neighbors0"):
-                nbrs[0] = lo.update_neighbor_table(t0, nbrs[0], old[0],
-                                                   max_new)
-            for i in range(L):
-                with span(f"tln.lattice.coarse{i + 1}"):
-                    c, links[i] = lo.grow_coarse_table_incremental(
-                        tabs[i], state.tables[i + 1], old[i], links[i],
-                        max_new)
-                tabs.append(c)
-                with span(f"tln.lattice.neighbors{i + 1}"):
-                    nbrs[i + 1] = lo.update_neighbor_table(
-                        c, nbrs[i + 1], old[i + 1], max_new)
-            grew = torch.stack([tb.count - o for tb, o in zip(tabs, old)])
-            overflowed = fs.overflowed | (grew > max_new).any()
-        fs = lo.FrameStructures(nbrs=tuple(nbrs), links=tuple(links),
-                                counts=tuple(tb.count for tb in tabs),
-                                overflowed=overflowed)
-        return dataclasses.replace(state, tables=tuple(tabs)), fs, dist
-
     def make_step(incremental: bool, final: bool):
         name = "tln.engine.stream_final" if final \
             else "tln.engine.stream_step"
@@ -409,7 +525,9 @@ def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
             with span(name, unit=next(_UNITS), frame=state.t):
                 p, v, m = _frame_inputs(dev, positions, values, mask)
                 with span("tln.lattice.frame", frame=state.t):
-                    state, fs, dist = advance(state, p, m, fs, incremental)
+                    state, fs, dist = _advance(
+                        cfg, rt, state, p, m, fs,
+                        max_new if incremental else None)
                 out, state, aux = model(state, fs, dist, values=v,
                                         final=final)
             if final:
