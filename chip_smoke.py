@@ -7,7 +7,7 @@ one NVIDIA GPU.
 Phases, in order; any failure exits non-zero without the final line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels K1-K5 from ``temporal_latticenet_tpu_torch/csrc``;
+2. build the CUDA kernels K1-K6 from ``temporal_latticenet_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the flagship main path gives it (inputs taken from a full-width lattice
    build), with its device time, its memory bound, the plain version's
@@ -27,11 +27,19 @@ Phases, in order; any failure exits non-zero without the final line:
    sign-flipped bits (K4's function on K2's fenced descriptors), then at
    the same edge cases, at C = 3 and at the training step's summary-scan
    shape; the two-level tail max that K5 (the windowed max) feeds must also
-   equal K4's full-scan tails;
+   equal K4's full-scan tails; K6 (the bf16 lattice convolution) runs on
+   the flagship lattice's neighbor tables at each convolution's widths
+   (values of random occupied rows, float32 and bf16), within the float32
+   summation bound of the exact sum of its bf16 products, rows 0 and from
+   the count up exactly zero, bit-equal from call to call, its bound the
+   larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s
+   (bf16 tensor cores), its library call ``torch.mm(..., out_dtype=
+   torch.float32)`` over the materialised bf16 rows;
 4. the flagship 4-frame offline sequence forward at bench geometry (131,072
    padded points per frame, capacities 49152/24576/12288, trims 36864 and
    40960, sigma 0.6, seeded random weights), with the launch count of every
-   kernel during one forward and the median seconds per sequence;
+   kernel during one forward (K6 once for every lattice convolution) and
+   the median seconds per sequence;
 5. where the forward's time goes: its stages by host clock around
    synchronised calls (lattice build, batched pointnet, per-frame network),
    and under ``torch.profiler`` the device time per sequence of every kernel
@@ -61,21 +69,23 @@ Phases, in order; any failure exits non-zero without the final line:
     (``make_streaming_inference``: every frame's structures built in full)
     and the incremental one (``make_streaming_inference_incremental``,
     ``max_new`` 8192).  Each path: the launches of every kernel a sequence
-    (K1 once per frame; the incremental path's as its wrappers count them
-    over one sequence, the plain path's, which replays CUDA graphs, by
-    kernel name in the profiled sequences), ``STREAM_SEQS`` sequences with
-    the milliseconds of every frame (host clock, synchronised around each
-    frame), the host syncs inside the frames (``torch.cuda`` sync debug
-    mode), the device time per frame by kernel name and the busy share
-    under ``torch.profiler``, peak memory, and each level's growth per
-    frame.  The incremental path must not overflow, and the final frame's
-    log-probabilities must agree with the offline forward's within the bf16
-    tolerance, equal each other, and equal a second run's.  Then the plain
-    path served from CUDA graphs against the same path forced eager over
-    two sequences (``stream_graphs``): bit-equality, or the largest
-    log-probability difference and the label flips, the graph counters
-    (which must read 3 captures and every later frame replayed), each
-    path's median frame ms, peak memory and host syncs;
+    (K1 once per frame, K6 once for each bf16 lattice convolution that an
+    eager run of the sequence calls; the incremental path's as its
+    wrappers count them over one sequence, the plain path's, which replays
+    CUDA graphs, by kernel name in the profiled sequences), ``STREAM_SEQS``
+    sequences with the milliseconds of every frame (host clock,
+    synchronised around each frame), the host syncs inside the frames
+    (``torch.cuda`` sync debug mode), the device time per frame by kernel
+    name and the busy share under ``torch.profiler``, peak memory, and each
+    level's growth per frame.  The incremental path must not overflow, and
+    the final frame's log-probabilities must agree with the offline
+    forward's within the bf16 tolerance, equal each other, and equal a
+    second run's.  Then the plain path served from CUDA graphs against the
+    same path forced eager over two sequences (``stream_graphs``):
+    bit-equality, or the largest log-probability difference and the label
+    flips, the graph counters (which must read 3 captures and every later
+    frame replayed), each path's median frame ms, peak memory and host
+    syncs;
 11. the streaming path on the card and on the CPU at the reduced geometry
     without trims: vertex tables, row indices, neighbor tables and corner
     indices of every frame equal, log-probabilities of both paths within
@@ -206,6 +216,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -221,6 +232,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 
 FLAGSHIP_RT = dict(max_points=131072, capacity_level0=49152,
                    capacity_decay=0.5, min_capacity=8192, sigma=0.6,
@@ -316,7 +328,8 @@ NO_LOCAL_MEAN = ("pointnet_no_local_mean",
 STREAMED_EXPERIMENTS = ("pointnet_no_local_mean", "attention_pool")
 # the kernels every experiment's forward launches (K3 also, with the local
 # mean; never K4 or K5: an experiment runs the per-frame pointnet)
-ABLATION_KERNELS = ("fused_simplex_pack", "sorted_segment_scan")
+ABLATION_KERNELS = ("fused_simplex_pack", "sorted_segment_scan",
+                    "lattice_conv")
 ABLATION_STEPS = 3     # timed training steps after the warm one
 DROPOUT = 0.2
 # the dropped share of the 131,072 x 192 slice features lies within 4e-4
@@ -400,6 +413,10 @@ KERNELS = {
     "sorted_segment_max_window": dict(
         source="temporal_latticenet_tpu_torch/csrc/seg_max_window.cu",
         replaces="temporal_latticenet_tpu/ops/pallas_scan.py:111"),
+    # no Pallas kernel: the JAX package leaves the product to XLA's dot
+    "lattice_conv": dict(
+        source="temporal_latticenet_tpu_torch/csrc/lattice_conv.cu",
+        replaces=None),
 }
 # the kernels the default-route forward launches (K5 only on the packed
 # route)
@@ -548,9 +565,9 @@ def split_ms(events, iters: int) -> dict:
     return out
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -590,6 +607,7 @@ def kernel_inputs(dev, data):
     the forward builds it, the final frame's trimmed links, and the links
     of the same data under the shipped train cfg (untrimmed: the loop's)."""
     from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
+    from temporal_latticenet_tpu_torch.ops import lattice_ops as lo
     from temporal_latticenet_tpu_torch.ops import permutohedral as pm
     from temporal_latticenet_tpu_torch.ops import seq_lattice as sl
     from temporal_latticenet_tpu_torch.train.engine import sequence_lattice
@@ -605,7 +623,9 @@ def kernel_inputs(dev, data):
     t, p = mask.shape
     y = pm.scale_positions(pos.reshape(t * p, 3), rt.sigma).contiguous()
     return dict(y=y, mask=mask.reshape(-1).contiguous(), spn=lat.sorted_pn,
-                links=final.links, loop_links=loop_lat.links, p=p)
+                links=final.links, loop_links=loop_lat.links, p=p,
+                tables=[(lo.NeighborTable(lvl.nbr_idx, lvl.nbr_found),
+                         lvl.counts[-1]) for lvl in final.levels])
 
 
 def check_kernels(dev, inp):
@@ -619,11 +639,12 @@ def check_kernels(dev, inp):
     ids_vf = spn.head_count
     results, cases = {}, []
 
-    def case(name, label, kernel, plain, library, nbytes, ops, compare):
+    def case(name, label, kernel, plain, library, nbytes, ops, compare,
+             ops_per_s=F32_OPS_PER_S):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err, ok, tol = compare(got, want)
-        bms, by = bound(nbytes, ops)
+        bms, by = bound(nbytes, ops, ops_per_s)
         plain_iters = max(1, KERNEL_ITERS // 10)
         ms, ops, events = device_ms(kernel, KERNEL_ITERS)
         rec = dict(kernel=name, case=label, max_abs_err=err, tolerance=tol,
@@ -856,6 +877,8 @@ def check_kernels(dev, inp):
              0, idx64, flipped, "amax"),
          q * 4 + q * 64 * 4 + b * 8 + b * 64 * 4, q * 64, tails_equal)
 
+    check_lattice_conv(dev, inp["tables"], case)
+
     # one entry per kernel: the times of its first case above, the largest
     # error over all of its cases, and the cases themselves
     for name in KERNELS:
@@ -863,6 +886,68 @@ def check_kernels(dev, inp):
         results[name] = dict(mine[0], cases=mine,
                              max_abs_err=max(c["max_abs_err"] for c in mine))
     return results
+
+
+# (level, Cin, Cout) of each lattice convolution of the flagship forward,
+# once for each pair: the down path's, the coarsens', the bottleneck's, the
+# finefies' and the last up stage's
+CONV_SHAPES = ((0, 64, 64), (0, 192, 192), (1, 64, 128), (1, 128, 128),
+               (1, 256, 128), (2, 128, 256), (2, 128, 128), (2, 256, 128))
+
+
+def check_lattice_conv(dev, tables, case):
+    """K6 against its plain version on the neighbor tables of the flagship
+    lattice's final frame (each level's trimmed rows, its last frame's
+    count), as the final frame's convolutions run on them, at each one's
+    widths, float32 values (the main path's) and then bf16 ones at the
+    first shape.  Within (n + 1) u sum|x w| (n = 9 Cin + 1 with the bias)
+    of the float64 sum of the bf16 products, rows 0 and from the count up
+    exactly zero, bit-equal from call to call."""
+    from temporal_latticenet_tpu_torch.ops import lattice_ops as lo
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    shapes = [(lv, ci, co, torch.float32) for lv, ci, co in CONV_SHAPES]
+    shapes.append(CONV_SHAPES[0] + (torch.bfloat16,))
+    for lv, cin, cout, dtype in shapes:
+        nbr, count = tables[lv]
+        rows = nbr.idx.shape[0]
+        live = (torch.arange(rows, device=dev) > 0) \
+            & (torch.arange(rows, device=dev) < count)
+        values = (torch.randn(rows, cin, generator=g, device=dev)
+                  * live[:, None]).to(dtype)
+        weight = torch.randn(9 * cin, cout, generator=g, device=dev) \
+            / math.sqrt(9 * cin)
+        bias = torch.randn(cout, generator=g, device=dev) * 0.1
+        rows_b = lo.gather_rowified(values.to(torch.bfloat16), nbr)
+        w_b = weight.to(torch.bfloat16)
+
+        def k6():
+            return lo.lattice_conv_gemm(values, nbr, weight, bias, count)
+
+        def compare(got, want):
+            exact = rows_b.double() @ w_b.double() + bias.double()
+            mag = rows_b.double().abs() @ w_b.double().abs() \
+                + bias.double().abs()
+            tol = (9 * cin + 2) * 2.0 ** -24 * mag
+            d = (got.double() - exact).abs()
+            ok = (bool((d[live] <= tol[live]).all())
+                  and not got[~live].any() and torch.equal(got, k6()))
+            return (float((got.double() - want.double()).abs().max()), ok,
+                    "|err| <= (n+1) 2^-24 sum|x w| of the exact bf16 "
+                    "products (n = 9 Cin + 1); rows 0 and >= count zero; "
+                    "bit-equal from call to call")
+
+        occupied = int(live.sum())
+        nbytes = (occupied * (cin * values.element_size() + 8 * 8)
+                  + 9 * cin * cout * 4 + cout * 4 + rows * cout * 4)
+        case("lattice_conv",
+             f"level {lv}: C={rows} count={int(count)} Cin={cin} "
+             f"Cout={cout} {str(dtype).replace('torch.', '')}",
+             k6, lambda: lo.lattice_conv_gemm_plain(values, nbr, weight,
+                                                    bias, count),
+             lambda: torch.mm(rows_b, w_b, out_dtype=torch.float32),
+             nbytes, 2 * occupied * 9 * cin * cout, compare,
+             BF16_OPS_PER_S)
 
 
 # ---------------------------------------------------------------------------
@@ -920,9 +1005,11 @@ def flagship_forward(dev, data, fwd, rt):
     from temporal_latticenet_tpu_torch.ops import _cuda
 
     pos, val, mask = data
+    convs = ConvCounter()
     _cuda.reset_launch_counts()
     torch.cuda.synchronize()
-    logp, _, aux = fwd(pos, val, mask)
+    with convs:
+        logp, _, aux = fwd(pos, val, mask)
     torch.cuda.synchronize()
     launches = _cuda.launch_counts()
     occ = check_output(logp, aux, rt, mask[-1])
@@ -930,6 +1017,9 @@ def flagship_forward(dev, data, fwd, rt):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    if launches["lattice_conv"] != convs.calls:
+        raise AssertionError(f"K6 launched {launches['lattice_conv']} times "
+                             f"for {convs.calls} lattice convolutions")
     secs = []
     for _ in range(FWD_ITERS):
         torch.cuda.synchronize()
@@ -942,6 +1032,32 @@ def flagship_forward(dev, data, fwd, rt):
     return dict(launches=launches, occupancy=occ, seconds_per_seq=s,
                 seconds_all=secs, points_per_s=pts / s,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+class ConvCounter:
+    """Inside the ``with``: the calls of ``lattice_ops.lattice_conv`` in
+    bf16 on the card (each must be one launch of K6)."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        from temporal_latticenet_tpu_torch.ops import lattice_ops as lo
+        self._orig = lo.lattice_conv
+        sig = inspect.signature(self._orig)
+
+        def counted(*a, **kw):
+            args = sig.bind(*a, **kw).arguments
+            if (args["values"].is_cuda
+                    and args.get("compute_dtype") == torch.bfloat16):
+                self.calls += 1
+            return self._orig(*a, **kw)
+        lo.lattice_conv = counted
+        return self
+
+    def __exit__(self, *exc):
+        from temporal_latticenet_tpu_torch.ops import lattice_ops as lo
+        lo.lattice_conv = self._orig
 
 
 def _timed(fn):
@@ -987,6 +1103,8 @@ def hand_written(kernel_name: str):
         return "sorted_segment_scan"
     if "seg_max_lookback" in kernel_name:
         return "sorted_segment_max_u32"
+    if "lattice_conv_kernel" in kernel_name:
+        return "lattice_conv"
     return None
 
 
@@ -1436,7 +1554,8 @@ def stream_path(dev, model, frames, incremental: bool):
     its experiments: the path runs ``model.cfg``).  The plain path's
     launches come from the profiled sequences (its frames replay CUDA
     graphs, which launch their kernels without the wrappers), the
-    incremental path's from the wrappers' counts over one sequence."""
+    incremental path's from the wrappers' counts over one sequence; K6's
+    must equal the bf16 lattice convolutions of an eager run."""
     from temporal_latticenet_tpu_torch.ops import _cuda
 
     n = len(frames[0])
@@ -1450,6 +1569,16 @@ def stream_path(dev, model, frames, incremental: bool):
         if not bool(carry[1].overflowed):
             break
         max_new *= 2                                 # reported below
+    # one sequence's bf16 convolutions, run eagerly (a graph's replay
+    # calls no Python)
+    graphs = getattr(fns[1], "graphs", None)
+    if graphs is not None:
+        graphs.card = False
+    convs = ConvCounter()
+    with convs:
+        run_stream(fns, frames)
+    if graphs is not None:
+        graphs.card = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
@@ -1497,6 +1626,10 @@ def stream_path(dev, model, frames, incremental: bool):
     if launches["fused_simplex_pack"] != n:
         raise AssertionError(f"K1 launched {launches['fused_simplex_pack']} "
                              f"times in {n} frames")
+    if launches["lattice_conv"] != convs.calls:
+        raise AssertionError(f"K6 launched {launches['lattice_conv']} times "
+                             f"in a sequence of {convs.calls} bf16 lattice "
+                             f"convolutions")
     return logp, dict(
         **timing, frame_ms_all=ms.tolist(), sequences=STREAM_SEQS,
         max_new=max_new if incremental else None, overflowed=overflowed,

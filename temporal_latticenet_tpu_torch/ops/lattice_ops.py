@@ -33,12 +33,14 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import types
 from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..utils.profiling import span
+from . import _cuda
 from . import permutohedral as pm
 from .fused_simplex import fused_simplex_pack
 from .seg_scan import sorted_segment_scan
@@ -439,13 +441,43 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor,
                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``x @ w`` with operands rounded to ``compute_dtype`` and a float32
     product: the JAX package's ``jnp.dot(a.astype(cd), w.astype(cd),
-    preferred_element_type=float32)``.  A bf16 ``torch.matmul`` would round
-    its result to bf16, so the rounded operands are upcast (exactly) and
-    multiplied in float32."""
+    preferred_element_type=float32)``.
+
+    Float32 operands multiply in float32 on either device (TF32 is off on
+    the card).  For bf16 operands, a bf16 ``torch.matmul`` would round its
+    result to bf16: on the CPU the rounded operands are upcast (exactly)
+    and multiplied in float32; on CUDA two 2-D operands go to one
+    ``torch.mm(..., out_dtype=torch.float32)``, bf16 tensor cores summing
+    in float32 (:class:`_MatmulBf16`, whose backward is the CPU path's)."""
     if compute_dtype != torch.float32:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
+        if (x.is_cuda and compute_dtype == torch.bfloat16 and x.dim() == 2
+                and w.dim() == 2):
+            return _MatmulBf16.apply(x, w)
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+class _MatmulBf16(torch.autograd.Function):
+    """bf16 ``x @ w`` summed and returned in float32 by one cuBLAS call.
+    The backward is the float32 path's: float32 products of the upcast
+    operands with the float32 cotangent, each gradient rounded back to its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = dy.mm(w.to(torch.float32).t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = x.to(torch.float32).t().mm(dy).to(w.dtype)
+        return dx, dw
 
 
 _REMAT_CONV_ROWS = contextvars.ContextVar("remat_conv_rows", default=False)
@@ -456,7 +488,8 @@ def remat_conv_rows(enabled: bool = True):
     """Within this context (and with gradients on), every
     :func:`lattice_conv` recomputes its (C, 9*Cin) rowified rows in the
     backward instead of saving them: the JAX package's selective remat
-    (``save_anything_except_these_names("lattice_conv_rows")``)."""
+    (``save_anything_except_these_names("lattice_conv_rows")``).  A bf16
+    convolution on CUDA never saves its rows (:class:`_LatticeConvBf16`)."""
     token = _REMAT_CONV_ROWS.set(enabled)
     try:
         yield
@@ -471,7 +504,14 @@ def _gather_matmul(values, nbr, weight, compute_dtype):
 def lattice_conv(values: torch.Tensor, nbr: NeighborTable,
                  weight: torch.Tensor, count, bias=None,
                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """One-hop lattice convolution: gather -> (C, 9*Cin) @ (9*Cin, Cout)."""
+    """One-hop lattice convolution: gather -> (C, 9*Cin) @ (9*Cin, Cout).
+
+    On CUDA in bf16 it is one launch of kernel K6 (:class:`_LatticeConvBf16`),
+    which never writes the rows to device memory; elsewhere the rows are
+    gathered, concatenated and multiplied by :func:`matmul_f32`."""
+    if values.is_cuda and compute_dtype == torch.bfloat16:
+        return _LatticeConvBf16.apply(values.contiguous(), weight, bias,
+                                      nbr, count)
     values = values.to(compute_dtype)
     if _REMAT_CONV_ROWS.get() and torch.is_grad_enabled():
         # no randomness inside: the rng state need not be kept
@@ -483,6 +523,154 @@ def lattice_conv(values: torch.Tensor, nbr: NeighborTable,
     if bias is not None:
         out = out + bias
     return mask_rows(out, count)
+
+
+def lattice_conv_gemm_plain(values: torch.Tensor, nbr: NeighborTable,
+                            weight: torch.Tensor, bias, count) -> torch.Tensor:
+    """Kernel K6's function in plain PyTorch, the bf16 path of
+    :func:`lattice_conv` as it runs on the CPU: :func:`gather_rowified` of
+    the bf16 values, :func:`matmul_f32` in bf16, the bias, and
+    :func:`mask_rows`."""
+    rows = gather_rowified(values.to(torch.bfloat16), nbr)
+    out = matmul_f32(rows, weight, torch.bfloat16)
+    if bias is not None:
+        out = out + bias
+    return mask_rows(out, count)
+
+
+def _tile_width(cout: int) -> int:
+    """K6's output columns a block: the tile that pads Cout least."""
+    if cout <= 32:
+        return 32
+    if cout <= 64:
+        return 64
+    if cout <= 96 or (cout % 96 == 0 and cout % 128 != 0):
+        return 96
+    return 128
+
+
+_K6_MAX_ROWS = 65535 * 128   # the grid's row tiles
+
+
+def lattice_conv_gemm(values: torch.Tensor, nbr: NeighborTable,
+                      weight: torch.Tensor, bias, count) -> torch.Tensor:
+    """``lattice_conv_gemm_plain`` as one launch of kernel K6
+    (``csrc/lattice_conv.cu``) for CUDA tensors; the plain version for CPU
+    tensors.
+
+    Args:
+      values: (C, Cin) float32 or bf16, contiguous (rounded to bf16 in the
+        kernel).
+      nbr: its ``idx``, (C, >= 8) int64 with a contiguous last dimension,
+        gives the neighbor taps ``idx[:, :8]`` (rows outside [0, C) read
+        zero).
+      weight: (9*Cin, Cout) float32 or bf16 (rounded to bf16).
+      bias: (Cout,) float32 or None.
+      count: () integer tensor on the values' device, or an int.
+    Returns (C, Cout) float32.
+    """
+    if values.device.type == "cpu":
+        return lattice_conv_gemm_plain(values, nbr, weight, bias, count)
+    if not values.is_cuda:
+        raise ValueError(f"unsupported device {values.device}")
+    if values.dim() != 2 or values.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+        raise ValueError(f"values must be (C, Cin) float32 or bf16, got "
+                         f"{tuple(values.shape)} {values.dtype}")
+    rows, cin = values.shape
+    if weight.dim() != 2 or weight.shape[0] != 9 * cin:
+        raise ValueError(f"weight must be ({9 * cin}, Cout), got "
+                         f"{tuple(weight.shape)}")
+    cout = weight.shape[1]
+    idx = nbr.idx
+    if (idx.dim() != 2 or idx.shape[0] != rows or idx.shape[1] < 8
+            or idx.dtype != torch.int64 or idx.stride(1) != 1):
+        raise ValueError(f"nbr.idx must be ({rows}, >= 8) int64 with "
+                         f"contiguous rows, got {tuple(idx.shape)} "
+                         f"{idx.dtype}")
+    if bias is not None and (bias.shape != (cout,)
+                             or bias.dtype != torch.float32):
+        raise ValueError(f"bias must be ({cout},) float32")
+    if rows > _K6_MAX_ROWS:
+        raise ValueError(f"K6 takes at most {_K6_MAX_ROWS} rows, got {rows}")
+    tensors = [values, idx, weight] + ([bias] if bias is not None else [])
+    if torch.is_tensor(count):
+        if count.numel() != 1 or count.dtype.is_floating_point:
+            raise ValueError("count must be one integer")
+        count = count.reshape(()).to(torch.int64)
+        tensors.append(count)
+    if any(t.device != values.device for t in tensors):
+        raise ValueError("K6's tensors must be on one device")
+    if not (values.is_contiguous() and weight.is_contiguous()
+            and (bias is None or bias.is_contiguous())):
+        raise ValueError("values, weight and bias must be contiguous")
+    weight = weight.to(torch.bfloat16)
+    out = torch.empty((rows, cout), dtype=torch.float32, device=values.device)
+    # 16-byte copies: 4 float32 or 8 bf16 values, 8 bf16 weights
+    vec_a = (cin % (16 // values.element_size()) == 0
+             and values.data_ptr() % 16 == 0)
+    vec_b = cout % 8 == 0 and weight.data_ptr() % 16 == 0
+    counted = torch.is_tensor(count)
+    fn = _cuda.function("lattice_conv", "tln_lattice_conv",
+                        [_cuda.P, _cuda.I32, _cuda.P, _cuda.I64, _cuda.P,
+                         _cuda.P, _cuda.P, _cuda.I64, _cuda.P, _cuda.I32,
+                         _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
+                         _cuda.I32, _cuda.P])
+    err = fn(values.data_ptr(), int(values.dtype == torch.bfloat16),
+             idx.data_ptr(), idx.stride(0), weight.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             count.data_ptr() if counted else None,
+             0 if counted else int(count), out.data_ptr(), rows, cin, cout,
+             _tile_width(cout), int(vec_a), int(vec_b), _cuda.stream_ptr())
+    _cuda.check("lattice_conv", err, "lattice_conv_gemm")
+    _cuda.count_launch("lattice_conv")
+    return out
+
+
+class _LatticeConvBf16(torch.autograd.Function):
+    """The bf16 lattice convolution as kernel K6 (:func:`lattice_conv_gemm`;
+    its plain version on the CPU).  It saves the values, the weight and the
+    table, never the rows.  The backward gives the gradients of the plain
+    path (:func:`gather_rowified`, :func:`matmul_f32`, the bias add and
+    :func:`mask_rows` under autograd) with the same operations: the rows
+    gathered again and upcast, ``dW = rows^T @ dY`` and ``dRows = dY @ W^T``
+    in float32 (bf16-exact operands, the float32 cotangent), each rounded to
+    bf16 as the upcasts' backwards round them, then the 8 taps' adjoint
+    through :meth:`_Gather8Sym.backward` plus the center tap."""
+
+    @staticmethod
+    def forward(ctx, values, weight, bias, nbr, count):
+        counted = torch.is_tensor(count)
+        ctx.count = None if counted else count
+        ctx.save_for_backward(values, weight, nbr.idx, nbr.found,
+                              count if counted else None)
+        return lattice_conv_gemm(values, nbr, weight, bias, count)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with span("tln.backward._LatticeConvBf16"):
+            values, weight, idx, found, count = ctx.saved_tensors
+            if count is None:
+                count = ctx.count
+            d_out = mask_rows(dy, count)
+            cap, cin = values.shape
+            d_values = d_weight = d_bias = None
+            if ctx.needs_input_grad[1]:
+                rows = gather_rowified(values.to(torch.bfloat16),
+                                       NeighborTable(idx, found))
+                d_weight = rows.to(torch.float32).t().mm(d_out).to(
+                    torch.bfloat16).to(weight.dtype)
+            if ctx.needs_input_grad[0]:
+                w = weight.to(torch.bfloat16).to(torch.float32)
+                d_rows = d_out.mm(w.t()).to(torch.bfloat16).reshape(
+                    cap, 9, cin)
+                # the gather's own backward, with the table it would save
+                taps = types.SimpleNamespace(saved_tensors=(idx[:, :8],))
+                d_taps, _ = _Gather8Sym.backward(taps, d_rows[:, :8])
+                d_values = (d_taps + d_rows[:, 8]).to(values.dtype)
+            if ctx.needs_input_grad[2]:
+                d_bias = d_out.sum(0)
+            return d_values, d_weight, d_bias, None, None
 
 
 def augment_link_sorted(corner_idx: torch.Tensor, corner_bary: torch.Tensor,

@@ -180,3 +180,77 @@ def test_sorted_packed_max_backward_matches_jax(monkeypatch, packed):
     np.testing.assert_allclose(b.grad.numpy(), np.asarray(jdb), rtol=TOL,
                                atol=TOL)
     assert (d.grad.numpy() != 0).any()
+
+
+def test_lattice_conv_bf16_function_matches_jax(lattice):
+    """The bf16 lattice convolution's autograd Function (``lattice_ops.
+    _LatticeConvBf16``: kernel K6's forward, or its plain version here on
+    the CPU) against ``jax.vjp`` of the JAX package's ``LatticeConv`` with
+    ``dtype="bfloat16"``, for the values, the weight and the bias, on the
+    same inputs and a level-0 table of a real lattice.
+
+    Both sum the same bf16-exact products in float32, in other orders: the
+    output and the bias's gradient lie within 2 (n + 1) 2^-24 of the sum of
+    the terms' magnitudes (n terms).  The weight's and the values'
+    gradients are rounded to bf16 on the way (the weight's once; the
+    values' three times: the rows' cotangent, the taps' adjoint and its sum
+    with the center tap), where the float32 sums' other order may move a
+    rounding by one bf16 step, 2^-7 of the magnitude at most: they lie
+    within 2^-7 per rounding of the terms' magnitudes, plus 2^-7 of the
+    value."""
+    from temporal_latticenet_tpu.models.blocks import LatticeConv
+
+    rng = np.random.default_rng(5)
+    lvl = lattice.levels[0]
+    cap = lvl.nbr_idx.shape[0]
+    count = int(lvl.counts[-1])
+    cin, cout = 24, 40
+    x = rng.standard_normal((cap, cin)).astype(np.float32)
+    x[0] = 0
+    x[count:] = 0
+    w = (rng.standard_normal((9 * cin, cout)) / np.sqrt(9 * cin)
+         ).astype(np.float32)
+    b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    ct = rng.standard_normal((cap, cout)).astype(np.float32)
+    jnbr = jlo.NeighborTable(idx=jnp.asarray(lvl.nbr_idx.numpy(), jnp.int32),
+                             found=jnp.asarray(lvl.nbr_found.numpy()))
+    conv = LatticeConv(cout, use_bias=True, dtype="bfloat16")
+
+    def jfn(v, k, bb):
+        return conv.apply({"params": {"kernel": k, "bias": bb}}, v, jnbr,
+                          count)
+    jy, jg = _jax_vjp(jfn, tuple(map(jnp.asarray, (x, w, b))),
+                      jnp.asarray(ct))
+
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, w, b)]
+    nbr = lo.NeighborTable(lvl.nbr_idx, lvl.nbr_found)
+    ty = lo._LatticeConvBf16.apply(*leaves, nbr, lvl.counts[-1])
+    ty.backward(torch.as_tensor(ct))
+    u, step = 2.0 ** -24, 2.0 ** -7
+
+    # the magnitudes of each result's terms
+    live = (np.arange(cap) > 0) & (np.arange(cap) < count)
+    rows = lo.gather_rowified(torch.tensor(x).to(torch.bfloat16),
+                              nbr).double().numpy()
+    wb = torch.tensor(w).to(torch.bfloat16).double().numpy()
+    dy = np.where(live[:, None], ct, 0).astype(np.float64)
+    mag_y = np.abs(rows) @ np.abs(wb) + np.abs(b)
+    mag_b = np.abs(dy).sum(0)
+    mag_w = np.abs(rows).T @ np.abs(dy)
+    mag_rows = (np.abs(dy) @ np.abs(wb).T).reshape(cap, 9, cin)
+    mag_v = mag_rows[:, 8].copy()
+    np.add.at(mag_v, lvl.nbr_idx[:, :8].numpy().reshape(-1),
+              mag_rows[:, :8].reshape(-1, cin))
+    mag_v[0] = 0
+
+    def within(got, want, tol):
+        err = np.abs(got.astype(np.float64) - np.asarray(want, np.float64))
+        assert (err <= tol).all(), float((err / np.maximum(tol, 1e-30)).max())
+
+    within(ty.detach().numpy(), jy, 2 * (9 * cin + 2) * u * mag_y)
+    gv, gw, gb = (t.grad.numpy() for t in leaves)
+    within(gb, jg[2], 2 * (cap + 1) * u * mag_b)
+    within(gw, jg[1], step * mag_w + step * np.abs(np.asarray(jg[1])))
+    within(gv, jg[0], 3 * step * mag_v + step * np.abs(np.asarray(jg[0])))
+    # rows 0 and from the count up receive nothing, on both sides
+    assert not gv[~live].any() and not np.asarray(jg[0])[~live].any()

@@ -486,12 +486,15 @@ def test_cuda_kernels_match_plain(cuda_device):
      "int4 const*, int4*, long, int, int)", "sorted_segment_max_window"),
     ("simplex_kernel(float const*, unsigned char const*, long, long*, "
      "float*)", "fused_simplex_pack"),
+    ("void (anonymous namespace)::lattice_conv_kernel<float, 128>(float "
+     "const*, long const*, long, __nv_bfloat16 const*, float const*, long "
+     "const*, long, float*, int, int, int, int, int)", "lattice_conv"),
     ("Memset (Device)", None),
     ("void at::native::vectorized_elementwise_kernel<4, "
      "at::native::CUDAFunctor_add<float>>(int, ...)", None),
 ])
 def test_chip_smoke_assigns_kernel_names(name, kernel):
-    """The profiler's kernel names map to K1-K5 by name: K4's look-back
+    """The profiler's kernel names map to K1-K6 by name: K4's look-back
     kernel is never counted as K2's, nor K2's as K4's."""
     assert chip_smoke.hand_written(name) == kernel
 
