@@ -37,16 +37,28 @@ Phases, in order; any failure exits non-zero without the final line:
    torch.float32)`` over the materialised bf16 rows;
 4. the flagship 4-frame offline sequence forward at bench geometry (131,072
    padded points per frame, capacities 49152/24576/12288, trims 36864 and
-   40960, sigma 0.6, seeded random weights), with the launch count of every
-   kernel during one forward (K6 once for every lattice convolution) and
-   the median seconds per sequence;
-5. where the forward's time goes: its stages by host clock around
-   synchronised calls (lattice build, batched pointnet, per-frame network),
-   and under ``torch.profiler`` the device time per sequence of every kernel
-   name (the hand-written kernels among them), the launches per sequence
-   and the device's busy share of the wall time;
-6. the same forward on the card and on the CPU at a reduced geometry:
-   integer lattice structure equal, log-probabilities within bf16 tolerance;
+   40960, sigma 0.6, seeded random weights) as it is served: after its
+   first, eager sequence it replays CUDA graphs
+   (``train/engine.SequenceGraphs``).  The launches of every kernel a
+   sequence, counted by kernel name in the profiled replays, must equal an
+   eager forward's (``engine.sequence_forward`` without gradients) as its
+   wrappers count them (K1-K4 each at least once, K6 once for every bf16
+   lattice convolution); the median seconds per sequence.  Then the served
+   forward against the eager one on ``GRAPH_SEQS`` sequences
+   (``sequence_graphs``): bit-equality of log-probabilities, logits and
+   aux, or the largest log-probability difference and the label flips,
+   the graph counters (1 capture, 1 eager sequence, every later one
+   replayed), each path's median ms a sequence, peak memory and host syncs
+   (none inside a replay);
+5. where the served forward's time goes: the eager forward's stages by
+   host clock around synchronised calls (lattice build, batched pointnet,
+   per-frame network) beside the served forward's seconds, and under
+   ``torch.profiler`` the device time per sequence of every kernel name
+   (the hand-written kernels among them), the launches per sequence and
+   the device's busy share of the wall time;
+6. the same forward on the card (its second call, a replay) and on the CPU
+   at a reduced geometry: integer lattice structure equal,
+   log-probabilities within bf16 tolerance;
 7. the forward on the packed route (``TLN_MAXSCAN_PACKED=1``, the JAX
    package's switch: the pointnet max through K5 and K4): the reduced
    pointnet tensor bit-equal to the default route's, the largest
@@ -93,8 +105,9 @@ Phases, in order; any failure exits non-zero without the final line:
     to each stream alone;
 12. lstm-maxpool-cga-linear (every other fusion kind, and the early
     maxpool) at phase 4's geometry, bf16, batched pointnet: the launches of
-    every kernel in one forward (K1-K4), ``CONFIG_ITERS`` timed forwards,
-    the device time and launches per sequence, one warm and
+    every kernel in one eager forward (K1-K4), held to the served forward's
+    replays by kernel name, ``CONFIG_ITERS`` timed served forwards, the
+    device time and launches per sequence, one warm and
     ``CONFIG_STEPS`` timed training steps on the default (K4) route with
     their peak memory and device time, and card vs CPU at the reduced
     geometry;
@@ -256,8 +269,9 @@ TRAIN_STEPS = 6        # timed training steps after the warm one
 PROFILE_STEPS = 2      # training steps under torch.profiler
 PROFILE_TRIES = 5      # tries of a profiler window that lost device events
 # spans a traced flagship forward holds (``utils/profiling.span``)
-TRACE_SPANS = {"tln.engine.sequence", "tln.lattice.build", "tln.lattice.frame",
-               "tln.model.pointnet", "tln.model.slice"}
+# the spans of a replayed offline forward
+TRACE_SPANS = {"tln.engine.sequence", "tln.lattice.sequence",
+               "tln.model.sequence"}
 PROFILE_RETRY_S = 0.5  # pause before the second try, doubled for each next
 # training step held against itself on the CPU: the tolerance of the CPU
 # test against the JAX package (tests/test_torch_train.py), for the same
@@ -969,7 +983,9 @@ def lidar(p: int, seed: int = 0):
 
 def make_forward(rt_kw, device, state_dict=None, cfg=None):
     """The model of ``cfg`` (default: the flagship) from seed 0 or
-    ``state_dict``, its no-gradient offline forward, and the runtime."""
+    ``state_dict``, its offline forward as it is served
+    (``make_sequence_forward``: on the card each shape's first sequence
+    runs eagerly, every later one replays CUDA graphs), and the runtime."""
     from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
     from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq
     from temporal_latticenet_tpu_torch.train.engine import make_sequence_forward
@@ -980,6 +996,51 @@ def make_forward(rt_kw, device, state_dict=None, cfg=None):
         model.load_state_dict(state_dict, strict=True)
     model.eval()
     return model, make_sequence_forward(model, cfg, rt), rt
+
+
+def eager_forward(model, rt):
+    """``model``'s offline forward run eagerly on every call
+    (``engine.sequence_forward`` without gradients): the code that the
+    served forward's CUDA graphs capture."""
+    from temporal_latticenet_tpu_torch.train.engine import sequence_forward
+
+    fwd = sequence_forward(model, model.cfg, rt)
+
+    @torch.no_grad()
+    def run(positions, values, mask):
+        return fwd(positions, values, mask)
+    return run
+
+
+def eager_launches(model, rt, data):
+    """The launches of every kernel in one eager forward of ``model`` on
+    ``data``, as the wrappers count them, and its bf16 lattice
+    convolutions (``ConvCounter``)."""
+    from temporal_latticenet_tpu_torch.ops import _cuda
+
+    fwd = eager_forward(model, rt)
+    convs = ConvCounter()
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    with convs:
+        fwd(*data)
+    torch.cuda.synchronize()
+    return _cuda.launch_counts(), convs.calls
+
+
+def served_events(fwd, data, want, calls: int):
+    """The device events and wall microseconds of ``calls`` replays of the
+    served forward ``fwd`` on ``data`` (captured beforehand), whose
+    launches of each kernel, counted by name (``traced_launches``), must
+    equal ``want``, one eager forward's."""
+    events, wall_us = device_events(
+        lambda: fwd(*data), calls,
+        launched={k: n * calls for k, n in want.items()})
+    got = traced_launches(events, calls)
+    if any(got[k] != want[k] for k in KERNELS):
+        raise AssertionError(f"the replayed forward launched {got} a "
+                             f"sequence, an eager one {want}")
+    return events, wall_us
 
 
 def check_output(logp, aux, rt, mask_last):
@@ -1001,25 +1062,26 @@ def check_output(logp, aux, rt, mask_last):
     return occ.tolist()
 
 
-def flagship_forward(dev, data, fwd, rt):
-    from temporal_latticenet_tpu_torch.ops import _cuda
-
+def flagship_forward(dev, data, model, fwd, rt):
+    """Phase 4's forward: the served forward's output and graph counters,
+    its launches a sequence (an eager forward's, held to the replays'
+    kernels by name) and its seconds a sequence."""
     pos, val, mask = data
-    convs = ConvCounter()
-    _cuda.reset_launch_counts()
-    torch.cuda.synchronize()
-    with convs:
-        logp, _, aux = fwd(pos, val, mask)
-    torch.cuda.synchronize()
-    launches = _cuda.launch_counts()
-    occ = check_output(logp, aux, rt, mask[-1])
+    launches, convs = eager_launches(model, rt, data)
     missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    if launches["lattice_conv"] != convs.calls:
+    if launches["lattice_conv"] != convs:
         raise AssertionError(f"K6 launched {launches['lattice_conv']} times "
-                             f"for {convs.calls} lattice convolutions")
+                             f"for {convs} lattice convolutions")
+    fwd(pos, val, mask)                             # warm-up and capture
+    logp, _, aux = fwd(pos, val, mask)
+    occ = check_output(logp, aux, rt, mask[-1])
+    counts = dict(fwd.graphs.counts)
+    if counts != dict(captures=1, replays=1, eager=1):
+        raise AssertionError(f"graph counters {counts}")
+    served_events(fwd, data, launches, PROFILE_FORWARDS)
     secs = []
     for _ in range(FWD_ITERS):
         torch.cuda.synchronize()
@@ -1029,9 +1091,75 @@ def flagship_forward(dev, data, fwd, rt):
         secs.append(time.perf_counter() - t0)
     s = statistics.median(secs)
     pts = FRAMES * float(mask.sum(1).mean())
-    return dict(launches=launches, occupancy=occ, seconds_per_seq=s,
-                seconds_all=secs, points_per_s=pts / s,
+    return dict(launches=launches, graph_counts=counts, occupancy=occ,
+                seconds_per_seq=s, seconds_all=secs, points_per_s=pts / s,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def sequence_graphs(dev, model, rt):
+    """The served forward (CUDA graphs) against the eager one
+    (``eager_forward``) on ``GRAPH_SEQS`` sequences of phase 4's geometry:
+    each path runs every sequence once (the served forward's warm-up and
+    capture), then ``GRAPH_ROUNDS`` more times with every sequence timed
+    (synchronised around it).  The last round's log-probabilities, logits
+    and aux are compared bit for bit; where they differ, the largest
+    log-probability difference and the valid points whose label differs.
+    Also the graph counters, each path's median ms a sequence, peak memory
+    and host syncs inside one sequence."""
+    from temporal_latticenet_tpu_torch.train.engine import \
+        make_sequence_forward
+
+    seqs = [tuple(torch.as_tensor(a, device=dev)
+                  for a in lidar(FLAGSHIP_RT["max_points"], seed=s))
+            for s in range(GRAPH_SEQS)]
+    paths = dict(graphs=make_sequence_forward(model, model.cfg, rt),
+                 eager=eager_forward(model, rt))
+    host_syncs(lambda: None)        # torch's one-time notice of the mode
+    res, last = {}, {}
+    for name, fwd in paths.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for seq in seqs:
+            fwd(*seq)
+        secs = []
+        for _ in range(GRAPH_ROUNDS):
+            last[name] = []
+            for seq in seqs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                last[name].append(fwd(*seq))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        res[name] = dict(
+            seq_ms=statistics.median(secs) * 1e3,
+            seq_quartiles_ms=[x * 1e3 for x in quartiles(secs)],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            host_syncs_per_sequence=host_syncs(lambda: fwd(*seqs[0])))
+    res["graphs"]["counts"] = dict(paths["graphs"].graphs.counts)
+    del paths
+    diffs = []
+    for seq, (lp_g, sv_g, aux_g), (lp_e, sv_e, aux_e) in zip(
+            seqs, last["graphs"], last["eager"]):
+        equal = (torch.equal(lp_g, lp_e) and torch.equal(sv_g, sv_e)
+                 and sorted(aux_g) == sorted(aux_e)
+                 and all(torch.equal(aux_g[k], aux_e[k]) for k in aux_e))
+        valid = seq[2][-1]
+        diffs.append(dict(
+            bit_equal=equal,
+            logp_max_abs_diff=float((lp_g - lp_e)[valid].abs().max()),
+            label_flips=int((lp_g.argmax(-1) != lp_e.argmax(-1))[valid]
+                            .sum()),
+            points=int(valid.sum())))
+    want = dict(captures=1, replays=len(seqs) * (1 + GRAPH_ROUNDS), eager=1)
+    res.update(sequences=diffs, rounds=GRAPH_ROUNDS,
+               bit_equal=all(d["bit_equal"] for d in diffs),
+               expected_counts=want)
+    if res["graphs"]["counts"] != want:
+        raise AssertionError(f"graph counters {res['graphs']['counts']}, "
+                             f"expected {want}")
+    if not res["bit_equal"] or res["graphs"]["host_syncs_per_sequence"]:
+        raise AssertionError(f"replayed vs eager forward: {json.dumps(res)}")
+    return res
 
 
 class ConvCounter:
@@ -1108,22 +1236,30 @@ def hand_written(kernel_name: str):
     return None
 
 
-def profile_forward(dev, data, model, fwd, rt):
+def profile_forward(dev, data, model, fwd, rt, launched=None):
+    """Phase 5: the eager forward's stages beside the served forward's
+    seconds, and the served forward's device summary (``launched``: one
+    eager forward's launches, phase 4's)."""
     from temporal_latticenet_tpu_torch.config import ModelConfig
     from temporal_latticenet_tpu_torch.train.engine import sequence_lattice
 
     pos, val, mask = data
     pos_d, val_d, mask_d = (torch.as_tensor(a, device=dev) for a in data)
+    eager = eager_forward(model, rt)
     with torch.no_grad():
         _, total = _timed(lambda: fwd(pos, val, mask))
+        _, eager_total = _timed(lambda: eager(pos, val, mask))
         (lat, _, _), t_build = _timed(lambda: sequence_lattice(
             ModelConfig(), rt, pos_d, val_d, mask_d))
         _, t_pn = _timed(lambda: model.reduce_pointnet(lat, val_d))
-    stages = dict(forward_s=total, lattice_build_s=t_build, pointnet_s=t_pn,
-                  network_frames_s=total - t_build - t_pn)
+    stages = dict(forward_s=total, eager_forward_s=eager_total,
+                  lattice_build_s=t_build, pointnet_s=t_pn,
+                  network_frames_s=eager_total - t_build - t_pn)
 
-    events, wall_us = device_events(lambda: fwd(pos, val, mask),
-                                    PROFILE_FORWARDS)
+    events, wall_us = device_events(
+        lambda: fwd(pos, val, mask), PROFILE_FORWARDS,
+        launched=launched and {k: n * PROFILE_FORWARDS
+                               for k, n in launched.items()})
     return dict(stages=stages, profiled_forwards=PROFILE_FORWARDS,
                 **device_summary(events, wall_us, PROFILE_FORWARDS, "seq"))
 
@@ -1231,6 +1367,7 @@ def card_vs_cpu(dev, cfg=None, rt_kw=SMALL_RT, atol=LOGP_ATOL, data=None):
     if bad:
         raise AssertionError(f"lattice fields differ card vs CPU: {bad}")
     lp_cpu, _, aux_c = cpu_fwd(*data)
+    dev_fwd(*data)                                  # warm-up and capture
     lp_dev, _, aux_d = dev_fwd(*data)
     check_output(lp_dev, aux_d, rt, data[2][-1])
     valid = torch.as_tensor(data[2][-1])
@@ -1713,8 +1850,8 @@ def streaming_flagship(dev, state_dict):
     model.load_state_dict(state_dict, strict=True)
     model.eval()
     _, offline, _ = make_forward(FLAGSHIP_RT, dev, state_dict)
-    with torch.no_grad():
-        logp_off = offline(*frames)[0]
+    offline(*frames)                                # warm-up and capture
+    logp_off = offline(*frames)[0]
     del offline
     logp_p, plain = stream_path(dev, model, frames, incremental=False)
     logp_i, inc = stream_path(dev, model, frames, incremental=True)
@@ -1841,20 +1978,18 @@ def model_config(**kw):
     return ModelConfig(**kw)
 
 
-def config_forward(data, fwd, rt, required):
+def config_forward(data, model, fwd, rt, required):
     """One configuration's offline forward at full width: the launches of
-    every kernel during one forward (each of ``required`` at least once),
-    the output checked, ``CONFIG_ITERS`` timed forwards, and the device time
-    per sequence under ``torch.profiler``.  Returns (logp, result)."""
-    from temporal_latticenet_tpu_torch.ops import _cuda
-
+    every kernel during one eager forward (each of ``required`` at least
+    once), the served forward's output checked, ``CONFIG_ITERS`` timed
+    served forwards, and the device time per sequence of its replays under
+    ``torch.profiler``, whose kernels by name must equal the eager
+    forward's launches.  Returns (logp, result)."""
     pos, val, mask = data
     torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launch_counts()
-    torch.cuda.synchronize()
+    launches, _ = eager_launches(model, rt, data)
+    fwd(pos, val, mask)                             # warm-up and capture
     logp, _, aux = fwd(pos, val, mask)
-    torch.cuda.synchronize()
-    launches = _cuda.launch_counts()
     occ = check_output(logp, aux, rt, mask[-1])
     if bool(aux["vertex_overflow"]):
         raise AssertionError("vertex overflow")
@@ -1868,8 +2003,7 @@ def config_forward(data, fwd, rt, required):
         fwd(pos, val, mask)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    events, wall_us = device_events(lambda: fwd(pos, val, mask),
-                                    CONFIG_PROFILE)
+    events, wall_us = served_events(fwd, data, launches, CONFIG_PROFILE)
     return logp, dict(
         launches=launches, occupancy=occ, frames=len(pos),
         points_per_frame=int(pos.shape[1]),
@@ -1887,7 +2021,7 @@ def all_kinds(dev, data):
 
     cfg = model_config(rnn_modules=ALL_KINDS)
     model, fwd, rt = make_forward(FLAGSHIP_RT, dev, cfg=cfg)
-    _, res = config_forward(data, fwd, rt, FORWARD_KERNELS)
+    _, res = config_forward(data, model, fwd, rt, FORWARD_KERNELS)
     del model, fwd
     torch.cuda.empty_cache()
 
@@ -1957,7 +2091,8 @@ def baseline_configs(dev, data):
     for name, (cfg, frames, scale) in cases.items():
         rt_kw = dict(FLAGSHIP_RT, max_points=scale * FLAGSHIP_RT["max_points"])
         model, fwd, rt = make_forward(rt_kw, dev, cfg=cfg)
-        _, res[name] = config_forward(frames(data), fwd, rt, FORWARD_KERNELS)
+        _, res[name] = config_forward(frames(data), model, fwd, rt,
+                                      FORWARD_KERNELS)
         del model, fwd
         torch.cuda.empty_cache()
         res[name]["card_vs_cpu"] = card_vs_cpu(
@@ -1979,7 +2114,7 @@ def per_frame_f32(dev, data, state_dict):
     cfg = model_config(compute_dtype="float32", reference_bary_quirk=True)
     rt_kw = dict(FLAGSHIP_RT, batched_pointnet=False)
     model, fwd, rt = make_forward(rt_kw, dev, state_dict, cfg)
-    logp, res = config_forward(data, fwd, rt, FORWARD_KERNELS[:3])
+    logp, res = config_forward(data, model, fwd, rt, FORWARD_KERNELS[:3])
     del model, fwd
     torch.cuda.empty_cache()
     res["vs_bf16_flagship"] = logp_stats(logp, logp_bf16, data[2][-1])
@@ -2365,7 +2500,7 @@ def ablation_forward(dev, data, experiment):
     reduced geometry.  Returns (model, offline logp, result)."""
     cfg = ablation_config(experiment)
     model, fwd, rt = make_forward(FLAGSHIP_RT, dev, cfg=cfg)
-    logp, res = config_forward(data, fwd, rt, ABLATION_KERNELS)
+    logp, res = config_forward(data, model, fwd, rt, ABLATION_KERNELS)
     no_k3 = experiment in NO_LOCAL_MEAN
     launches = res["launches"]
     wrong = {k: launches[k] for k in KERNELS
@@ -3292,14 +3427,27 @@ def main(argv=None) -> int:
         kernels = phase("kernels", lambda: check_kernels(
             dev, kernel_inputs(dev, data)))
         model, fwd_fn, rt = make_forward(FLAGSHIP_RT, dev)
-        fwd = phase("forward", lambda: flagship_forward(dev, data, fwd_fn,
-                                                        rt))
+        fwd = phase("forward", lambda: flagship_forward(dev, data, model,
+                                                        fwd_fn, rt))
         if fwd:
             log(f"[forward] {fwd['seconds_per_seq']:.4f} s/seq, "
                 f"{fwd['points_per_s']:.0f} points/s on {dline}; "
-                f"launches {fwd['launches']}")
-        prof = phase("profile", lambda: profile_forward(dev, data, model,
-                                                        fwd_fn, rt))
+                f"launches {fwd['launches']}; graph counters "
+                f"{fwd['graph_counts']}")
+        g = phase("forward_graphs", lambda: sequence_graphs(dev, model, rt))
+        if g:
+            log(f"[forward_graphs] graphs vs eager: bit-equal "
+                f"{g['bit_equal']} {json.dumps(g['sequences'])}; seq ms "
+                f"{g['graphs']['seq_ms']:.2f} graphs / "
+                f"{g['eager']['seq_ms']:.2f} eager on {dline}; counters "
+                f"{g['graphs']['counts']}; peak "
+                f"{g['graphs']['peak_mem_gb']:.2f} / "
+                f"{g['eager']['peak_mem_gb']:.2f} GB; host syncs "
+                f"{g['graphs']['host_syncs_per_sequence']} / "
+                f"{g['eager']['host_syncs_per_sequence']}")
+        torch.cuda.empty_cache()
+        prof = phase("profile", lambda: profile_forward(
+            dev, data, model, fwd_fn, rt, (fwd or {}).get("launches")))
         if prof:
             log(f"[profile] {json.dumps(prof['stages'])}; "
                 f"{prof['device_ms_per_seq']:.2f} device ms and "

@@ -45,7 +45,7 @@ from . import permutohedral as pm
 from .fused_simplex import fused_simplex_pack
 from .seg_scan import sorted_segment_scan
 from .vertex_table import (PACKED_SENTINEL, SENTINEL, VertexTable, lookup,
-                           scatter_or_drop, union_and_index,
+                           scatter_or_drop, scatter_where, union_and_index,
                            union_and_index_packed)
 
 
@@ -701,10 +701,10 @@ def augment_link_sorted(corner_idx: torch.Tensor, corner_bary: torch.Tensor,
     m = min(coarse_cap, n)
     dd, pp = d_t[:m], p_t[:m]
     real = dd != PACKED_SENTINEL
-    tp = torch.zeros(coarse_cap, dtype=torch.int64, device=dev)
-    live = torch.zeros(coarse_cap, dtype=torch.bool, device=dev)
-    tp[dd[real]] = pp[real]
-    live[dd[real]] = True
+    tp = scatter_where(torch.zeros(coarse_cap, dtype=torch.int64,
+                                   device=dev), real, dd, pp)
+    live = scatter_where(torch.zeros(coarse_cap, dtype=torch.bool,
+                                     device=dev), real, dd, real)
     if m > 0:
         wrapped = ~real[-1]          # an unused entry exists -> last slot
         tp[-1] = torch.where(wrapped, pp[-1], tp[-1])

@@ -37,7 +37,7 @@ from .seg_scan import INT_MIN, sorted_segment_max_u32, sorted_segment_max_window
 CHUNK = 16   # rows per chunk of the two-level tail max (window CHUNK // 2)
 
 
-def _packed_route() -> bool:
+def packed_route() -> bool:
     """True when ``TLN_MAXSCAN_PACKED=1``: C <= 64 maxima take the two-level
     route on K5 (the JAX package reads the same variable at call time)."""
     return os.environ.get("TLN_MAXSCAN_PACKED", "0") == "1"
@@ -72,9 +72,10 @@ def _decode_packed(best: torch.Tensor):
 
 
 def _umax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise max of int32 tensors compared as uint32."""
-    flip = torch.tensor(INT_MIN, dtype=torch.int32, device=a.device)
-    return torch.maximum(a ^ flip, b ^ flip) ^ flip
+    """Elementwise max of int32 tensors compared as uint32 (the sign flip
+    a Python scalar: no host-to-device copy, which would wait for the
+    card)."""
+    return torch.maximum(a ^ INT_MIN, b ^ INT_MIN) ^ INT_MIN
 
 
 def _seg_max_tails_twolevel(head_count: torch.Tensor, packed: torch.Tensor,
@@ -129,7 +130,7 @@ class _SortedPackedMax(torch.autograd.Function):
                 bucket_live):
         packed = _pack_value_bary(data, bary, live)
         tails = tailpos.reshape(-1)
-        if packed.shape[1] <= 64 and _packed_route():
+        if packed.shape[1] <= 64 and packed_route():
             best = _seg_max_tails_twolevel(head_count, packed, tails)
         else:
             best = sorted_segment_max_u32(head_count, packed)[tails]

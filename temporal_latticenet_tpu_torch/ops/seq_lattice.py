@@ -28,7 +28,8 @@ from .lattice_ops import (DistributeOut, LevelLink, NeighborTable,
                           augment_link_sorted)
 from .seg_scan import seg_sum_tails, sorted_segment_scan
 from .vertex_table import (PACKED_SENTINEL, SENTINEL, shifted_ne,
-                           lookup_select, pack_keys, unpack_keys)
+                           lookup_select, pack_keys, scatter_where,
+                           unpack_keys)
 
 
 @dataclasses.dataclass
@@ -245,9 +246,10 @@ def _union_with_birth_and_mean(cand_packed, pos_rows, capacity: int,
     ids_vf = _blocked_cumsum(head_vf.to(torch.int32))
     tail_sums = seg_sum_tails(ids_vf, data, tails_i.contiguous())
     # table of per-bucket (sums, tail position); row m collects dead rows
-    buf = torch.zeros((m + 1, 5), dtype=torch.float32, device=dev)
-    buf[sk[real]] = torch.cat([tail_sums, tails_i[:, None].to(torch.float32)],
-                              dim=1)[real]
+    # and reads zero (the unused tail entries drop past it)
+    buf = scatter_where(
+        torch.zeros((m + 1, 5), dtype=torch.float32, device=dev), real, sk,
+        torch.cat([tail_sums, tails_i[:, None].to(torch.float32)], dim=1))
     tot = buf[bucket][:, :4]
     nr_points = buf[:m, 3].reshape(n_frames, capacity).clone()
     tailpos = buf[:m, 4].to(torch.int64).reshape(n_frames, capacity)
@@ -361,9 +363,9 @@ def _build_level(packed_final, birth_final, counts, n_frames: int,
     hitm = fwd_found & (fwd_idx < nr)
     src = (stable[:nr, None] | (birth_final[:nr, None] << 24)).expand(
         nr, n_half)
-    buf = torch.full((nr * n_half,), -1, dtype=torch.int64, device=dev)
-    buf[(fwd_idx * n_half + a_idx)[hitm]] = src[hitm]
-    rev = buf.reshape(nr, n_half)
+    rev = scatter_where(
+        torch.full((nr * n_half,), -1, dtype=torch.int64, device=dev), hitm,
+        fwd_idx * n_half + a_idx, src).reshape(nr, n_half)
     rev_found = (rev >= 0) & valid_self[:, None]
     rev_idx = torch.where(rev_found, rev & 0xFFFFFF, torch.full_like(rev, -1))
     rev_birth = rev >> 24

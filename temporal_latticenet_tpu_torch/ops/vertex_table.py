@@ -129,6 +129,14 @@ def scatter_or_drop(base: torch.Tensor, dst: torch.Tensor,
     return out[:-1]
 
 
+def scatter_where(base: torch.Tensor, keep: torch.Tensor, dst: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """``base[dst[keep]] = src[keep]`` on a copy of ``base``, without the
+    host sync of a boolean index: the entries not kept write to the drop
+    slot ``len(base)`` of :func:`scatter_or_drop` instead."""
+    return scatter_or_drop(base, torch.where(keep, dst, base.shape[0]), src)
+
+
 def shifted_ne(x: torch.Tensor) -> torch.Tensor:
     """[True, x[1:] != x[:-1]]."""
     out = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)

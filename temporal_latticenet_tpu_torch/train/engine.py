@@ -12,7 +12,10 @@ of the lattice.  The no-local-mean experiments build the lattice and
 distribute without the local mean.  Frames 0..T-2 run the
 trimmed early-return network on row prefixes of the lattice (a Python loop
 in place of ``lax.scan``), and the final frame runs the full model on its
-own trimmed view.  The training
+own trimmed view.  On the card the offline forward serves each sequence by
+replaying two CUDA graphs of its own code, one of the sequence lattice and
+one of the network over it; it makes no host sync, so the host launches
+two graphs a sequence instead of some 4,700 operations.  The training
 step differentiates that forward end to end (backpropagation through time
 over the carried fusion states) under the loss of ``models/losses.py`` and
 takes one AdamW(amsgrad) step; the slice head's dropout
@@ -49,6 +52,7 @@ from ..models.lnn_seq import SITES, LNNSeq, SeqState, init_state, site_level
 from ..models.pointnet import subtract_local_mean
 from ..models.losses import segmentation_loss
 from ..ops import lattice_ops as lo
+from ..ops import segment
 from ..ops import seq_lattice as sl
 from ..parallel import mesh as pmesh
 from ..utils.profiling import span, without_spans
@@ -140,26 +144,13 @@ def _remat_frame(fn, remat: str):
     return wrapped
 
 
-def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
-                     remat: str = "none"):
-    """Single-sequence forward with gradients: (positions (T,P,3), values
-    (T,P,V), mask (T,P), dropout_gen=None) -> (logp (P, classes), logits,
-    aux) for the last frame.  With a ``dropout_gen`` and
-    ``dropout_last_layer > 0``, the final frame's slice head drops features
-    by a mask drawn from it before the frame runs (so that a recomputed
-    frame drops the same ones); ``aux["dropped_share"]`` is the mask's
-    dropped share.
-
-    ``remat`` sets what the backward recomputes instead of keeping:
-      "none"      -- keep every activation;
-      "selective" -- keep everything except each lattice convolution's
-                     (C, 9*Cin) rowified rows (``lattice_ops.remat_conv_rows``);
-      "full"      -- keep only each frame's inputs and recompute the frame.
-
-    Inputs may be numpy arrays or tensors; they move to the model's device.
-    """
-    if remat not in REMAT_MODES:
-        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+def _sequence_parts(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
+                    remat: str):
+    """The sequence forward's two halves, on device tensors:
+    ``lattice(positions, values, mask)`` -> the sequence lattice's
+    structures (``sequence_lattice``, the trim overflow flag and every
+    frame's ``DistributeOut``), and ``network(structures, values,
+    dropout_gen)`` -> (logp, logits, aux) of the last frame."""
     batched = batched_pointnet(cfg, rt)
     L = cfg.nr_downsamples
     dev = model.device
@@ -168,16 +159,7 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     def site_caps(which):
         return [which[site_level(cfg, s)] for s in SITES]
 
-    def seq_forward(positions, values, mask, dropout_gen=None):
-        with span("tln.engine.sequence", unit=next(_UNITS)):
-            return run(positions, values, mask, dropout_gen)
-
-    def run(positions, values, mask, dropout_gen):
-        positions = torch.as_tensor(positions, device=dev)
-        values = torch.as_tensor(values, device=dev)
-        mask = torch.as_tensor(mask, device=dev)
-        state = init_state(cfg, rt, dev)
-        t = positions.shape[0]
+    def lattice(positions, values, mask):
         # the lattice is integer structure and point geometry: nothing in
         # it is differentiated
         with torch.no_grad():
@@ -194,8 +176,13 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
                      for l in range(L + 1)]
         trim_overflow = (torch.stack(over).any() if over
                          else torch.zeros((), dtype=torch.bool, device=dev))
+        return (seqlat, trim_caps, final_caps, trim_overflow,
+                seqlat.distribute_out())
 
-        full_dist = seqlat.distribute_out()
+    def network(structures, values, dropout_gen):
+        seqlat, trim_caps, final_caps, trim_overflow, full_dist = structures
+        state = init_state(cfg, rt, dev)
+        t = values.shape[0]
         with lo.remat_conv_rows(remat == "selective"):
             # per frame: the batched pointnet's reduced slice, or None (the
             # frame runs the pointnet over its own rows)
@@ -231,7 +218,7 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
                 final_lat, red_final = seqlat, reduced_all[-1]
             keep = None
             if dropout_gen is not None and cfg.dropout_last_layer > 0:
-                keep = model.slice_fast_cuda.dropout_keep(positions.shape[1],
+                keep = model.slice_fast_cuda.dropout_keep(values.shape[1],
                                                           dropout_gen)
             (logp, sv), state, aux = frame(state, final_lat,
                                            full_dist.frame(t - 1), red_final,
@@ -243,7 +230,137 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
         aux["vertex_overflow"] = aux["vertex_overflow"] | trim_overflow
         return logp, sv, aux
 
+    return lattice, network
+
+
+def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
+                     remat: str = "none"):
+    """Single-sequence forward with gradients: (positions (T,P,3), values
+    (T,P,V), mask (T,P), dropout_gen=None) -> (logp (P, classes), logits,
+    aux) for the last frame.  With a ``dropout_gen`` and
+    ``dropout_last_layer > 0``, the final frame's slice head drops features
+    by a mask drawn from it before the frame runs (so that a recomputed
+    frame drops the same ones); ``aux["dropped_share"]`` is the mask's
+    dropped share.
+
+    ``remat`` sets what the backward recomputes instead of keeping:
+      "none"      -- keep every activation;
+      "selective" -- keep everything except each lattice convolution's
+                     (C, 9*Cin) rowified rows (``lattice_ops.remat_conv_rows``);
+      "full"      -- keep only each frame's inputs and recompute the frame.
+
+    Inputs may be numpy arrays or tensors; they move to the model's device.
+    """
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+    lattice, network = _sequence_parts(model, cfg, rt, remat)
+
+    def seq_forward(positions, values, mask, dropout_gen=None):
+        with span("tln.engine.sequence", unit=next(_UNITS), graph=0):
+            p, v, m = _frame_inputs(model.device, positions, values, mask)
+            return network(lattice(p, v, m), v, dropout_gen)
+
     return seq_forward
+
+
+class _GraphCache:
+    """Serve-or-capture of one unit of work (a sequence, a frame) as CUDA
+    graphs; a subclass gives the unit's ``key``, its ``eager`` run and the
+    ``capture`` of its graphs.
+
+    A unit's work is fixed by its key.  The first unit of a key runs
+    eagerly (its warm-up: every lazily made constant and library handle
+    exists afterwards), then the key's graphs are captured, all from one
+    memory pool, with spans muted; every later unit of the key copies its
+    inputs into the graphs' static buffers and replays them.  Units run
+    eagerly off the card (``card``, the model's device), with gradients on
+    (a replay records no autograd graph) and inside ``LNNSeq.sow_aux`` (a
+    replay makes no Python-side records).
+
+    ``counts``: ``captures`` (keys captured), ``replays`` and ``eager``
+    (units served each way)."""
+
+    def __init__(self, model: LNNSeq):
+        self.model = model
+        self.card = model.device.type == "cuda"
+        self.graphs = {}
+        self.pool = None
+        self.counts = {"captures": 0, "replays": 0, "eager": 0}
+
+    def __call__(self, name: str, args: tuple, **ids):
+        """Serve one unit, ``args``, inside the engine span ``name`` (with
+        ``ids`` and ``graph``: 1 for a replay, 0 for an eager unit)."""
+        replayable = (self.card and not torch.is_grad_enabled()
+                      and not self.model.sowing)
+        key = self.key(*args) if replayable else None
+        graphs = self.graphs.get(key)
+        with span(name, unit=next(_UNITS), graph=int(graphs is not None),
+                  **ids):
+            if graphs is not None:
+                self.counts["replays"] += 1
+                return graphs(*args)
+            self.counts["eager"] += 1
+            out = self.eager(*args)
+        if replayable:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            self.graphs[key] = self.capture(*args, pool=self.pool)
+            self.counts["captures"] += 1
+        return out
+
+
+class _SequenceGraph:
+    """One key's two CUDA graphs, the sequence lattice (its structures and
+    every frame's ``DistributeOut``) and the network over it (the batched
+    pointnet and every frame of the model), and their static inputs and
+    outputs.  The network graph reads the lattice graph's outputs in place,
+    so the two replay in turn with nothing in between; the outputs are
+    cloned before anything else replays."""
+
+    def __init__(self, lattice, network, p, v, m, pool):
+        self.p, self.v, self.m = p.clone(), v.clone(), m.clone()
+        with without_spans():
+            self.lattice, self.structures = _capture(
+                lambda: lattice(self.p, self.v, self.m), pool)
+            self.network, self.out = _capture(
+                lambda: network(self.structures, self.v, None), pool)
+
+    def __call__(self, p, v, m):
+        """The sequence's (logp, logits, aux), all fresh tensors."""
+        with span("tln.lattice.sequence"):
+            self.p.copy_(p)
+            self.v.copy_(v)
+            self.m.copy_(m)
+            self.lattice.replay()
+        with span("tln.model.sequence"):
+            self.network.replay()
+            clone = _cloner()
+            logp, sv, aux = self.out
+            return clone(logp), clone(sv), {k: clone(x)
+                                            for k, x in aux.items()}
+
+
+class SequenceGraphs(_GraphCache):
+    """The offline sequence forward as CUDA graphs (:class:`_GraphCache`).
+
+    A sequence's key: the shapes and dtypes of its positions, values and
+    mask (the forward's other Python-side branches, the trim capacities,
+    follow from the runtime config and the number of frames) and the
+    pointnet max's route.  Its graphs are a :class:`_SequenceGraph`."""
+
+    def __init__(self, model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig):
+        super().__init__(model)
+        self.lattice, self.network = _sequence_parts(model, cfg, rt, "none")
+
+    def key(self, p, v, m):
+        return (tuple((x.shape, x.dtype) for x in (p, v, m)),
+                segment.packed_route())
+
+    def eager(self, p, v, m):
+        return self.network(self.lattice(p, v, m), v, None)
+
+    def capture(self, p, v, m, pool):
+        return _SequenceGraph(self.lattice, self.network, p, v, m, pool)
 
 
 def make_sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
@@ -251,9 +368,11 @@ def make_sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     """The inference entry point, with gradients off.  Single sequence:
     (positions (T,P,3), values (T,P,V), mask (T,P)) -> (logp (P, classes),
     logits, aux) for the last frame.  ``precompute=True`` is
-    :func:`sequence_forward` over the whole-sequence lattice;
-    ``precompute=False`` steps :func:`make_streaming_inference` through the
-    frames."""
+    :func:`sequence_forward` over the whole-sequence lattice, which on the
+    card replays the CUDA graphs of the sequence's key
+    (:class:`SequenceGraphs`, ``seq_forward.graphs``); every tensor returned
+    is fresh.  ``precompute=False`` steps :func:`make_streaming_inference`
+    through the frames."""
     if not precompute:
         new_state_fn, step_fn, final_fn = make_streaming_inference(model, cfg,
                                                                    rt)
@@ -266,12 +385,14 @@ def make_sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
                                         state)
             return logp, sv, aux
         return stream_forward
-    fwd = sequence_forward(model, cfg, rt, remat="none")
+    cache = SequenceGraphs(model, cfg, rt)
 
     @torch.no_grad()
     def seq_forward(positions, values, mask):
-        return fwd(positions, values, mask)
+        return cache("tln.engine.sequence",
+                     _frame_inputs(model.device, positions, values, mask))
 
+    seq_forward.graphs = cache
     return seq_forward
 
 
@@ -349,9 +470,10 @@ class _FrameGraphs:
                 lambda: model(*self.structures, values=self.v, final=final),
                 pool)
 
-    def __call__(self, p, v, m, state: SeqState):
+    def __call__(self, p, v, m, state: SeqState, final: bool):
         """The frame's (out, new state, aux), all fresh tensors; aux is
-        None on a non-final frame."""
+        None on a non-final frame (``final`` is part of the key, so it is
+        the captured frame's)."""
         with span("tln.lattice.frame", frame=state.t):
             self.p.copy_(p)
             self.m.copy_(m)
@@ -381,60 +503,35 @@ class _FrameGraphs:
         return out, new, aux
 
 
-class StreamGraphs:
-    """The plain stream's frames as CUDA graphs.
+class StreamGraphs(_GraphCache):
+    """The plain stream's frames as CUDA graphs (:class:`_GraphCache`).
 
-    A frame's work is fixed by its key: first frame or not, early return or
-    final, the shapes and dtypes of the frame and of the fusion states, and
-    the fusion sites' prev_counts that are still Python numbers.  The first
-    frame of a key runs eagerly (its warm-up: every lazily made constant
-    and library handle exists afterwards), then the key's two graphs
-    (``_FrameGraphs``) are captured, sharing one memory pool, with spans
-    muted; every later frame of the key copies its inputs into the graphs'
-    static buffers and replays them.  Frames run eagerly off the card
-    (``card``, the model's device) and inside ``LNNSeq.sow_aux`` (a replay
-    makes no Python-side records).  The step functions that call it run
-    without autograd, which a replay would not record.
-
-    ``counts``: ``captures`` (keys captured), ``replays`` and ``eager``
-    (frames served each way)."""
+    A frame's key: first frame or not, early return or final, the shapes
+    and dtypes of the frame and of the fusion states, the fusion sites'
+    prev_counts that are still Python numbers, and the pointnet max's
+    route.  Its graphs are a :class:`_FrameGraphs`.  The model's output
+    (out, new state, aux) comes back, aux None on a replayed non-final
+    frame."""
 
     def __init__(self, model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig):
-        self.model, self.cfg, self.rt = model, cfg, rt
-        self.card = model.device.type == "cuda"
-        self.graphs = {}
-        self.pool = None
-        self.counts = {"captures": 0, "replays": 0, "eager": 0}
+        super().__init__(model)
+        self.cfg, self.rt = cfg, rt
 
     def key(self, p, v, m, state: SeqState, final: bool):
         return (state.t == 0, final,
                 tuple((x.shape, x.dtype) for x in (p, v, m, *state.h)),
                 tuple(None if isinstance(c, torch.Tensor) else c
-                      for c in state.prev_counts))
+                      for c in state.prev_counts),
+                segment.packed_route())
 
-    def __call__(self, name: str, p, v, m, state: SeqState, final: bool):
-        """Serve one frame inside the engine span ``name``; returns the
-        model's (out, new state, aux), aux None on a replayed non-final
-        frame."""
-        replayable = self.card and not self.model.sowing
-        key = self.key(p, v, m, state, final) if replayable else None
-        graphs = self.graphs.get(key)
-        with span(name, unit=next(_UNITS), frame=state.t,
-                  graph=int(graphs is not None)):
-            if graphs is not None:
-                self.counts["replays"] += 1
-                return graphs(p, v, m, state)
-            self.counts["eager"] += 1
-            with span("tln.lattice.frame", frame=state.t):
-                new, fs, dist = _advance(self.cfg, self.rt, state, p, m)
-            out = self.model(new, fs, dist, values=v, final=final)
-        if replayable:
-            if self.pool is None:
-                self.pool = torch.cuda.graph_pool_handle()
-            self.graphs[key] = _FrameGraphs(self.model, self.cfg, self.rt,
-                                            p, v, m, state, final, self.pool)
-            self.counts["captures"] += 1
-        return out
+    def eager(self, p, v, m, state: SeqState, final: bool):
+        with span("tln.lattice.frame", frame=state.t):
+            new, fs, dist = _advance(self.cfg, self.rt, state, p, m)
+        return self.model(new, fs, dist, values=v, final=final)
+
+    def capture(self, p, v, m, state: SeqState, final: bool, pool):
+        return _FrameGraphs(self.model, self.cfg, self.rt, p, v, m, state,
+                            final, pool)
 
 
 def make_streaming_inference(model: LNNSeq, cfg: ModelConfig,
@@ -463,15 +560,15 @@ def make_streaming_inference(model: LNNSeq, cfg: ModelConfig,
     @torch.no_grad()
     def step_fn(positions, values, mask, state):
         p, v, m = _frame_inputs(dev, positions, values, mask)
-        _, state, _ = cache("tln.engine.stream_step", p, v, m, state,
-                            final=False)
+        _, state, _ = cache("tln.engine.stream_step",
+                            (p, v, m, state, False), frame=state.t)
         return state
 
     @torch.no_grad()
     def final_fn(positions, values, mask, state):
         p, v, m = _frame_inputs(dev, positions, values, mask)
-        (logp, sv), state, aux = cache("tln.engine.stream_final", p, v, m,
-                                       state, final=True)
+        (logp, sv), state, aux = cache("tln.engine.stream_final",
+                                       (p, v, m, state, True), frame=state.t)
         return logp, sv, state, aux
 
     step_fn.graphs = final_fn.graphs = cache

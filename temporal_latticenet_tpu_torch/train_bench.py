@@ -39,7 +39,7 @@ from .data.lidar_like import lidar_sequence
 from .data.synthetic import synthetic_sequence
 from .device import describe, resolve_device, synchronize
 from .ops import _cuda
-from .ops.segment import _packed_route
+from .ops.segment import packed_route
 from .train import engine
 
 MAX_POINTS = 131072     # scripts/train_bench.py:67
@@ -96,7 +96,7 @@ def run(rt: RuntimeConfig, cfg: ModelConfig, *, points: int = 120_000,
 
     details = {
         "pointnet_max_route": ("K5 + K4 (TLN_MAXSCAN_PACKED=1)"
-                               if _packed_route() else "K4"),
+                               if packed_route() else "K4"),
         "launches_per_step": launches,
         "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else None),

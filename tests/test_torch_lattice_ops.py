@@ -7,6 +7,8 @@ Float32 sums are held within reduction order: 1e-6 of each segment's sum
 of magnitudes.  Nothing is jitted: each JAX call is one scatter.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,3 +80,37 @@ def test_gather_rows_backward_matches_jax():
     np.testing.assert_array_less(np.abs(v.grad.numpy() - np.asarray(want)),
                                  SUM_RTOL * mags + 1e-30)
     assert np.all(np.abs(v.grad.numpy()[0]) > 0)
+
+
+@pytest.mark.parametrize("cf,coarse_cap,n_dst", [
+    (300, 256, 120),     # fewer destinations than slots: the last wraps
+    (40, 256, 90),       # fewer entries (160) than slots
+    (300, 128, 128),     # every slot a destination: nothing wraps
+])
+def test_augment_link_sorted_equals_boolean_index(cf, coarse_cap, n_dst,
+                                                  monkeypatch):
+    """The tail compaction writes through a drop slot
+    (``vertex_table.scatter_where``): tail positions, ``tail_live`` and the
+    sorted view bit-equal to the boolean-index formulation's, the wrapped
+    last slot included (slot ``coarse_cap - 1`` live with the last unused
+    entry's position whenever an entry is unused)."""
+    rng = np.random.default_rng(cf + n_dst)
+    corner_idx = torch.from_numpy(rng.integers(0, n_dst, (cf, 4)))
+    corner_bary = torch.from_numpy(rng.random((cf, 4)).astype(np.float32))
+
+    def old_write(base, keep, dst, src):
+        out = base.clone()
+        out[dst[keep]] = src[keep]
+        return out
+
+    new = lo.augment_link_sorted(corner_idx, corner_bary, coarse_cap)
+    with monkeypatch.context() as m:
+        m.setattr(lo, "scatter_where", old_write)
+        old = lo.augment_link_sorted(corner_idx, corner_bary, coarse_cap)
+    for f in dataclasses.fields(new):
+        a, b = getattr(new, f.name), getattr(old, f.name)
+        assert a.dtype == b.dtype and torch.equal(a, b), f.name
+    used = len(torch.unique(corner_idx))
+    wrapped = used < min(coarse_cap, cf * 4)
+    assert bool(new.tail_live[-1]) == (wrapped or used == coarse_cap)
+    assert int(new.tail_live.sum()) == used + (wrapped and used < coarse_cap)

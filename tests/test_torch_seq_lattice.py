@@ -172,3 +172,76 @@ def test_no_mean_union_and_trim_equal():
         _compare_lattice(jax.jit(functools.partial(
             jsl.trim_sequence_lattice, trim_caps=trim))(jl),
                          tsl.trim_sequence_lattice(tl, trim))
+
+
+def _boolean_index_write(base, keep, dst, src):
+    """The formulation that ``vertex_table.scatter_where`` replaced: a
+    boolean index, which costs the card one host sync."""
+    out = base.clone()
+    out[dst[keep]] = src[keep]
+    return out
+
+
+def _tensor_fields(x, name=""):
+    """{dotted name: tensor} of a nested dataclass or tuple."""
+    if isinstance(x, torch.Tensor):
+        return {name: x}
+    if dataclasses.is_dataclass(x):
+        pairs = [(f.name, getattr(x, f.name)) for f in dataclasses.fields(x)]
+    elif isinstance(x, (tuple, list)):
+        pairs = [(str(i), y) for i, y in enumerate(x)]
+    else:
+        return {}
+    out = {}
+    for k, y in pairs:
+        out.update(_tensor_fields(y, f"{name}.{k}"))
+    return out
+
+
+@pytest.mark.parametrize("case", ["dead_buckets", "wrapped_slots", "no_hits"])
+def test_sync_free_writes_equal_boolean_index(case, monkeypatch):
+    """The union's bucket table, the reverse neighbor edges and the links'
+    tail compaction write through a drop slot (``scatter_where``) instead
+    of a boolean index: every structure bit-equal to the boolean-index
+    formulation's, with dead buckets (rows past a saturated level 0 and
+    masked points), links whose coarse level has fewer destinations than
+    its capacity (the wrapped last slot), and no neighbor hits at all (no
+    valid point)."""
+    from temporal_latticenet_tpu_torch.ops import lattice_ops as tlo
+
+    rng = np.random.default_rng(11)
+    t, p = 3, 400
+    pos = (rng.standard_normal((t, p, 3)) * 4.0).astype(np.float32)
+    mask = rng.random((t, p)) > 0.2
+    val = rng.random((t, p, 1)).astype(np.float32)
+    caps = (512, 256, 128) if case == "dead_buckets" else (8192, 8192, 4096)
+    if case == "no_hits":
+        mask[:] = False
+
+    def build():
+        return tsl.build_sequence_lattice(
+            torch.from_numpy(pos), torch.from_numpy(mask), 0.6, caps, 2,
+            pn_values=torch.from_numpy(val))
+
+    new = build()
+    with monkeypatch.context() as m:
+        m.setattr(tsl, "scatter_where", _boolean_index_write)
+        m.setattr(tlo, "scatter_where", _boolean_index_write)
+        old = build()
+    a, b = _tensor_fields(new), _tensor_fields(old)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+
+    dead = new.sorted_pn.bucket == t * caps[0]
+    if case == "dead_buckets":
+        assert int(new.levels[0].counts[-1]) == caps[0]     # saturated
+        assert bool(dead[new.sorted_pn.so < t * p * 4 // 2].any())
+    if case == "wrapped_slots":
+        for l, link in enumerate(new.links):
+            assert int(new.levels[l + 1].counts[-1]) < caps[l + 1]
+            assert bool(link.tail_live[-1])
+    if case == "no_hits":
+        assert bool(dead.all())
+        for lvl in new.levels:
+            assert not bool(lvl.nbr_found.any())

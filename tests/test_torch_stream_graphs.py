@@ -155,13 +155,14 @@ def test_plain_stream_equals_the_models_own_frames():
                                     "eager": 2 * T}
 
 
-def test_graph_keys_replays_and_eager_fallbacks(stub_graphs):
+def test_graph_keys_replays_and_eager_fallbacks(stub_graphs, monkeypatch):
     """One key (two graphs) per first / later frame, early return / final,
-    and shapes, captured after the key's first, eager frame and replayed
-    by every later one; replays equal the eager path bit for bit and
-    carry ``graph=1`` in their engine span.  Off the card and inside
-    ``sow_aux`` every frame runs eagerly; a caller's autograd does not
-    reach the graphs, which the step functions call without it."""
+    shapes and route of the pointnet max, captured after the key's first,
+    eager frame and replayed by every later one; replays equal the eager
+    path bit for bit and carry ``graph=1`` in their engine span.  Off the
+    card and inside ``sow_aux`` every frame runs eagerly; a caller's
+    autograd does not reach the graphs, which the step functions call
+    without it."""
     model = _model()
     seqs = _sequences()
     eager = [_run(engine.make_streaming_inference(model, CFG, RT), s)
@@ -214,6 +215,13 @@ def test_graph_keys_replays_and_eager_fallbacks(stub_graphs):
     assert graphs.counts == {"captures": 6, "replays": T + 1,
                              "eager": 3 * T}
     assert len(sown["recurrent_fusion_modules_1"]["aflow_weights"]) == T - 1
+
+    # the packed route of the pointnet max is another key
+    with monkeypatch.context() as env:
+        env.setenv("TLN_MAXSCAN_PACKED", "1")
+        _assert_same(_run(fns, seqs[0]), eager[0])
+    assert graphs.counts == {"captures": 9, "replays": T + 1,
+                             "eager": 4 * T}
 
 
 def test_held_outputs_do_not_change(stub_graphs):
