@@ -263,22 +263,122 @@ def sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     return seq_forward
 
 
+# ---------------------------------------------------------------------------
+# CUDA graph replay of a unit of work
+# ---------------------------------------------------------------------------
+
+def _tree_map(fn, x):
+    """``x`` rebuilt with ``fn`` applied to each tensor leaf: tuples, lists,
+    dicts, NamedTuples and dataclasses are walked, anything else passes
+    through."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, (tuple, list)):
+        items = [_tree_map(fn, y) for y in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, y) for k, y in x.items()}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _tree_map(fn, getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def _leaves(x) -> list:
+    """The tensor leaves of ``x``, in :func:`_tree_map`'s order."""
+    out = []
+    _tree_map(out.append, x)
+    return out
+
+
+def _cloner():
+    """A clone function for :func:`_tree_map` that clones each tensor once,
+    so that outputs which share a tensor (a fusion site's count is its
+    level's table count) share its clone."""
+    memo = {}
+
+    def clone(x):
+        if id(x) not in memo:
+            memo[id(x)] = x.clone()
+        return memo[id(x)]
+    return clone
+
+
+def _copy_in(static, args, copied: dict) -> dict:
+    """Copy each tensor leaf of ``args`` into its buffer, the same leaf of
+    ``static``, unless that buffer already holds that very tensor
+    (``copied``: buffer id -> the tensor copied in; updated and
+    returned)."""
+    for dst, src in zip(_leaves(static), _leaves(args), strict=True):
+        if copied.get(id(dst)) is not src:
+            dst.copy_(src)
+            copied[id(dst)] = src
+    return copied
+
+
+def _capture(fn, pool):
+    """``fn()`` captured as a CUDA graph whose memory comes from ``pool``.
+    Returns (the graph, fn's outputs: tensors that each replay writes
+    anew)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    return graph, out
+
+
+class _UnitGraphs:
+    """One key's two CUDA graphs, ``lattice(*a)`` and ``network(structures,
+    *b)`` over its outputs, captured from one pool, and their static
+    buffers: a copy of every tensor leaf of ``a`` and ``b``, one for a
+    tensor that both hold.  The network graph reads the lattice graph's
+    outputs in place, so the two replay in turn with nothing in between;
+    the outputs are cloned before anything else replays."""
+
+    def __init__(self, lattice, network, a, b, pool):
+        clone = _cloner()
+        self.a, self.b = _tree_map(clone, a), _tree_map(clone, b)
+        with without_spans():
+            self.lattice, structures = _capture(lambda: lattice(*self.a),
+                                                pool)
+            self.network, self.out = _capture(
+                lambda: network(structures, *self.b), pool)
+
+    def __call__(self, a, b, unit: str, ids: dict):
+        """The unit's outputs, all fresh tensors: ``a`` copied in and the
+        lattice graph replayed inside ``tln.lattice.<unit>``, then ``b``
+        copied in, the network graph replayed and the outputs cloned inside
+        ``tln.model.<unit>``.  Non-tensor leaves are the captured unit's."""
+        with span(f"tln.lattice.{unit}", **ids):
+            copied = _copy_in(self.a, a, {})
+            self.lattice.replay()
+        with span(f"tln.model.{unit}", **ids):
+            _copy_in(self.b, b, copied)
+            self.network.replay()
+            return _tree_map(_cloner(), self.out)
+
+
 class _GraphCache:
     """Serve-or-capture of one unit of work (a sequence, a frame) as CUDA
-    graphs; a subclass gives the unit's ``key``, its ``eager`` run and the
-    ``capture`` of its graphs.
+    graphs.  A subclass gives the unit's ``key`` and its ``parts``:
+    ``(lattice, network, a, b)``, the unit being ``network(lattice(*a),
+    *b)``; ``unit`` names the spans of its two parts, ``tln.lattice.<unit>``
+    and ``tln.model.<unit>``.
 
     A unit's work is fixed by its key.  The first unit of a key runs
     eagerly (its warm-up: every lazily made constant and library handle
-    exists afterwards), then the key's graphs are captured, all from one
-    memory pool, with spans muted; every later unit of the key copies its
-    inputs into the graphs' static buffers and replays them.  Units run
-    eagerly off the card (``card``, the model's device), with gradients on
-    (a replay records no autograd graph) and inside ``LNNSeq.sow_aux`` (a
-    replay makes no Python-side records).
+    exists afterwards), then the key's graphs are captured
+    (:class:`_UnitGraphs`), all from one memory pool, with spans muted;
+    every later unit of the key copies its inputs into the graphs' static
+    buffers and replays them.  Units run eagerly off the card (``card``,
+    the model's device), with gradients on (a replay records no autograd
+    graph) and inside ``LNNSeq.sow_aux`` (a replay makes no Python-side
+    records).
 
     ``counts``: ``captures`` (keys captured), ``replays`` and ``eager``
     (units served each way)."""
+
+    unit = None
 
     def __init__(self, model: LNNSeq):
         self.model = model
@@ -289,64 +389,42 @@ class _GraphCache:
 
     def __call__(self, name: str, args: tuple, **ids):
         """Serve one unit, ``args``, inside the engine span ``name`` (with
-        ``ids`` and ``graph``: 1 for a replay, 0 for an eager unit)."""
+        ``ids`` and ``graph``: 1 for a replay, 0 for an eager unit); the
+        spans of its parts carry ``ids`` too."""
         replayable = (self.card and not torch.is_grad_enabled()
                       and not self.model.sowing)
         key = self.key(*args) if replayable else None
         graphs = self.graphs.get(key)
+        lattice, network, a, b = self.parts(*args)
         with span(name, unit=next(_UNITS), graph=int(graphs is not None),
                   **ids):
             if graphs is not None:
                 self.counts["replays"] += 1
-                return graphs(*args)
+                return graphs(a, b, self.unit, ids)
             self.counts["eager"] += 1
-            out = self.eager(*args)
+            with span(f"tln.lattice.{self.unit}", **ids):
+                structures = lattice(*a)
+            out = network(structures, *b)
         if replayable:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            self.graphs[key] = self.capture(*args, pool=self.pool)
+            self.graphs[key] = _UnitGraphs(lattice, network, a, b, self.pool)
             self.counts["captures"] += 1
         return out
 
 
-class _SequenceGraph:
-    """One key's two CUDA graphs, the sequence lattice (its structures and
-    every frame's ``DistributeOut``) and the network over it (the batched
-    pointnet and every frame of the model), and their static inputs and
-    outputs.  The network graph reads the lattice graph's outputs in place,
-    so the two replay in turn with nothing in between; the outputs are
-    cloned before anything else replays."""
-
-    def __init__(self, lattice, network, p, v, m, pool):
-        self.p, self.v, self.m = p.clone(), v.clone(), m.clone()
-        with without_spans():
-            self.lattice, self.structures = _capture(
-                lambda: lattice(self.p, self.v, self.m), pool)
-            self.network, self.out = _capture(
-                lambda: network(self.structures, self.v, None), pool)
-
-    def __call__(self, p, v, m):
-        """The sequence's (logp, logits, aux), all fresh tensors."""
-        with span("tln.lattice.sequence"):
-            self.p.copy_(p)
-            self.v.copy_(v)
-            self.m.copy_(m)
-            self.lattice.replay()
-        with span("tln.model.sequence"):
-            self.network.replay()
-            clone = _cloner()
-            logp, sv, aux = self.out
-            return clone(logp), clone(sv), {k: clone(x)
-                                            for k, x in aux.items()}
-
-
 class SequenceGraphs(_GraphCache):
-    """The offline sequence forward as CUDA graphs (:class:`_GraphCache`).
+    """The offline sequence forward as CUDA graphs (:class:`_GraphCache`):
+    the sequence lattice (its structures and every frame's
+    ``DistributeOut``), then the network over it (the batched pointnet and
+    every frame of the model), :func:`_sequence_parts`.
 
     A sequence's key: the shapes and dtypes of its positions, values and
     mask (the forward's other Python-side branches, the trim capacities,
     follow from the runtime config and the number of frames) and the
-    pointnet max's route.  Its graphs are a :class:`_SequenceGraph`."""
+    pointnet max's route."""
+
+    unit = "sequence"
 
     def __init__(self, model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig):
         super().__init__(model)
@@ -356,11 +434,8 @@ class SequenceGraphs(_GraphCache):
         return (tuple((x.shape, x.dtype) for x in (p, v, m)),
                 segment.packed_route())
 
-    def eager(self, p, v, m):
-        return self.network(self.lattice(p, v, m), v, None)
-
-    def capture(self, p, v, m, pool):
-        return _SequenceGraph(self.lattice, self.network, p, v, m, pool)
+    def parts(self, p, v, m):
+        return self.lattice, self.network, (p, v, m), (v, None)
 
 
 def make_sequence_forward(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
@@ -405,113 +480,26 @@ def _frame_inputs(dev, positions, values, mask):
                  for a in (positions, values, mask))
 
 
-def _advance(cfg: ModelConfig, rt: RuntimeConfig, state: SeqState,
-             positions, mask, fs=None, max_new=None):
-    """``lattice_ops.advance_frame`` on the state's tables: (the state with
-    the new tables, FrameStructures, DistributeOut)."""
-    tables, fs, dist = lo.advance_frame(
-        state.tables, positions, mask, rt.sigma, subtract_local_mean(cfg),
-        fs, max_new)
-    return dataclasses.replace(state, tables=tables), fs, dist
-
-
-def _map_table(fn, table):
-    return dataclasses.replace(table, **{
-        f.name: fn(getattr(table, f.name))
-        for f in dataclasses.fields(table)})
-
-
-def _cloner():
-    """A clone function that clones each tensor once, so that outputs which
-    share a tensor (a fusion site's count is its level's table count) share
-    its clone; anything else passes through."""
-    memo = {}
-
-    def clone(x):
-        if not isinstance(x, torch.Tensor):
-            return x
-        if id(x) not in memo:
-            memo[id(x)] = x.clone()
-        return memo[id(x)]
-    return clone
-
-
-def _capture(fn, pool):
-    """``fn()`` captured as a CUDA graph whose memory comes from ``pool``.
-    Returns (the graph, fn's outputs: tensors that each replay writes
-    anew)."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        out = fn()
-    return graph, out
-
-
-class _FrameGraphs:
-    """One key's two CUDA graphs, the frame's lattice part (distribute and
-    every level's structures) and its network part (the model on them), and
-    their static inputs and outputs.  The network graph reads the lattice
-    graph's outputs in place, so the two replay in turn with nothing in
-    between; the outputs are cloned before anything else replays."""
-
-    def __init__(self, model: LNNSeq, cfg, rt, p, v, m, state, final: bool,
-                 pool):
-        self.final = final
-        self.p, self.v, self.m = p.clone(), v.clone(), m.clone()
-        self.state = SeqState(
-            h=tuple(x.clone() for x in state.h),
-            prev_counts=tuple(c.clone() if isinstance(c, torch.Tensor)
-                              else c for c in state.prev_counts),
-            t=state.t,
-            tables=tuple(_map_table(torch.clone, tb) for tb in state.tables))
-        with without_spans():
-            self.lattice, self.structures = _capture(
-                lambda: _advance(cfg, rt, self.state, self.p, self.m), pool)
-            self.network, self.out = _capture(
-                lambda: model(*self.structures, values=self.v, final=final),
-                pool)
-
-    def __call__(self, p, v, m, state: SeqState, final: bool):
-        """The frame's (out, new state, aux), all fresh tensors; aux is
-        None on a non-final frame (``final`` is part of the key, so it is
-        the captured frame's)."""
-        with span("tln.lattice.frame", frame=state.t):
-            self.p.copy_(p)
-            self.m.copy_(m)
-            for dst, src in zip(self.state.tables, state.tables):
-                for f in dataclasses.fields(dst):
-                    getattr(dst, f.name).copy_(getattr(src, f.name))
-            self.lattice.replay()
-        with span("tln.model.frame", frame=state.t):
-            self.v.copy_(v)
-            for dst, src in zip(self.state.h + self.state.prev_counts,
-                                state.h + state.prev_counts):
-                if isinstance(dst, torch.Tensor):
-                    dst.copy_(src)
-            self.network.replay()
-            out, new, aux = self.out
-            clone = _cloner()
-            new = SeqState(h=tuple(map(clone, new.h)),
-                           prev_counts=tuple(map(clone, new.prev_counts)),
-                           t=state.t + 1,
-                           tables=tuple(_map_table(clone, tb)
-                                        for tb in new.tables))
-            if self.final:
-                out = tuple(map(clone, out))
-                aux = {k: clone(x) for k, x in aux.items()}
-            else:
-                aux = None
-        return out, new, aux
+def _advance(cfg: ModelConfig, rt: RuntimeConfig, tables, positions, mask,
+             fs=None, max_new=None):
+    """``lattice_ops.advance_frame`` onto ``tables``: (the new tables,
+    FrameStructures, DistributeOut)."""
+    return lo.advance_frame(tables, positions, mask, rt.sigma,
+                            subtract_local_mean(cfg), fs, max_new)
 
 
 class StreamGraphs(_GraphCache):
-    """The plain stream's frames as CUDA graphs (:class:`_GraphCache`).
+    """The plain stream's frames as CUDA graphs (:class:`_GraphCache`): the
+    frame distributed onto the state's tables with every level's structures
+    built (:func:`_advance`), then the model on them.
 
     A frame's key: first frame or not, early return or final, the shapes
     and dtypes of the frame and of the fusion states, the fusion sites'
     prev_counts that are still Python numbers, and the pointnet max's
-    route.  Its graphs are a :class:`_FrameGraphs`.  The model's output
-    (out, new state, aux) comes back, aux None on a replayed non-final
-    frame."""
+    route.  The model's output (out, new state, aux) comes back, aux None
+    on a non-final frame."""
+
+    unit = "frame"
 
     def __init__(self, model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig):
         super().__init__(model)
@@ -524,14 +512,26 @@ class StreamGraphs(_GraphCache):
                       for c in state.prev_counts),
                 segment.packed_route())
 
-    def eager(self, p, v, m, state: SeqState, final: bool):
-        with span("tln.lattice.frame", frame=state.t):
-            new, fs, dist = _advance(self.cfg, self.rt, state, p, m)
-        return self.model(new, fs, dist, values=v, final=final)
+    def parts(self, p, v, m, state: SeqState, final: bool):
+        t = state.t
 
-    def capture(self, p, v, m, state: SeqState, final: bool, pool):
-        return _FrameGraphs(self.model, self.cfg, self.rt, p, v, m, state,
-                            final, pool)
+        def lattice(p, m, tables):
+            return _advance(self.cfg, self.rt, tables, p, m)
+
+        def network(structures, v, h, prev_counts):
+            tables, fs, dist = structures
+            out, new, aux = self.model(
+                SeqState(h=h, prev_counts=prev_counts, t=t, tables=tables),
+                fs, dist, values=v, final=final)
+            return out, new, aux if final else None
+
+        return (lattice, network, (p, m, state.tables),
+                (v, state.h, state.prev_counts))
+
+    def __call__(self, name: str, args: tuple, **ids):
+        out, new, aux = super().__call__(name, args, **ids)
+        # a replayed frame's state holds the captured frame's t
+        return out, dataclasses.replace(new, t=args[3].t + 1), aux
 
 
 def make_streaming_inference(model: LNNSeq, cfg: ModelConfig,
@@ -622,11 +622,12 @@ def make_streaming_inference_incremental(model: LNNSeq, cfg: ModelConfig,
             with span(name, unit=next(_UNITS), frame=state.t):
                 p, v, m = _frame_inputs(dev, positions, values, mask)
                 with span("tln.lattice.frame", frame=state.t):
-                    state, fs, dist = _advance(
-                        cfg, rt, state, p, m, fs,
+                    tables, fs, dist = _advance(
+                        cfg, rt, state.tables, p, m, fs,
                         max_new if incremental else None)
-                out, state, aux = model(state, fs, dist, values=v,
-                                        final=final)
+                out, state, aux = model(
+                    dataclasses.replace(state, tables=tables), fs, dist,
+                    values=v, final=final)
             if final:
                 return out[0], out[1], state, fs, aux
             return state, fs

@@ -111,6 +111,23 @@ def test_sequence_held_outputs_do_not_change(stub_graphs, monkeypatch):
         assert torch.equal(x, y)
 
 
+def test_sequence_inputs_reach_the_static_buffers(stub_graphs,
+                                                  monkeypatch):
+    """A replayed sequence copies its positions, values and mask into its
+    graphs' own static buffers; the values, which the lattice graph
+    (``a``) and the network graph (``b``) both read, have one buffer, and
+    the network's dropout generator, None, stays None."""
+    fwd = _forward(_model(), monkeypatch)
+    seqs = _sequences()
+    fwd(*seqs[0])
+    (g,) = fwd.graphs.graphs.values()
+    assert g.b[0] is g.a[1] and g.b[1] is None
+    fwd(*seqs[1])
+    assert fwd.graphs.counts["replays"] == 1
+    for x, y in zip(g.a, seqs[1], strict=True):
+        assert torch.equal(x, y) and x.data_ptr() != y.data_ptr()
+
+
 def test_graph_sequences_pct_reads_the_sequence_spans(stub_graphs,
                                                       monkeypatch):
     """The benchmark's ``graph_sequences_pct`` reader on the span log of

@@ -16,8 +16,11 @@ import pytest
 import torch
 
 from temporal_latticenet_tpu_torch.config import ModelConfig, RuntimeConfig
-from temporal_latticenet_tpu_torch.models.lnn_seq import LNNSeq, init_state
+from temporal_latticenet_tpu_torch.models.lnn_seq import (SITES, LNNSeq,
+                                                         SeqState, init_state,
+                                                         site_level)
 from temporal_latticenet_tpu_torch.ops import _cuda
+from temporal_latticenet_tpu_torch.ops.lattice_ops import NeighborTable
 from temporal_latticenet_tpu_torch.train import engine
 from temporal_latticenet_tpu_torch.utils import profiling
 from tests.torch_parallel_workers import tiny_batch
@@ -238,6 +241,122 @@ def test_held_outputs_do_not_change(stub_graphs):
     for x, y in zip(_tensors((logp, sv, state, aux, states)), held,
                     strict=True):
         assert torch.equal(x, y)
+
+
+def _second_frame(fns, seqs):
+    """Frame 1 of ``seqs[1]``, replayed from the graphs that frame 1 of
+    ``seqs[0]`` captured: (those graphs, the frame's (p, v, m), the state it
+    took, the state it gave)."""
+    new, step, _ = fns
+    for pos, val, msk in seqs:
+        before = step(pos[0], val[0], msk[0], new())
+        after = step(pos[1], val[1], msk[1], before)
+    assert step.graphs.counts == {"captures": 2, "replays": 2, "eager": 2}
+    (graphs,) = [g for k, g in step.graphs.graphs.items()
+                 if k[:2] == (False, False)]
+    return graphs, (pos[1], val[1], msk[1]), before, after
+
+
+def test_frame_inputs_reach_the_static_buffers(stub_graphs):
+    """A replayed frame copies every tensor leaf of its inputs into its
+    graphs' own static buffers: the frame's positions and mask and every
+    field of every level's table for the lattice graph (``a``); its
+    values, the fusion states and the prev_counts for the network graph
+    (``b``).  A prev_count is its level's table count, one tensor in ``a``
+    and ``b``: it has one buffer."""
+    g, (p, v, m), before, _ = _second_frame(
+        _card(engine.make_streaming_inference(_model(), CFG, RT)),
+        _sequences())
+    for static, want in ((g.a, (p, m, before.tables)),
+                         (g.b, (v, before.h, before.prev_counts))):
+        got, ref = _tensors(static), _tensors(want)
+        assert len(got) == len(ref) > 0
+        for x, y in zip(got, ref, strict=True):
+            assert torch.equal(x, y) and x.data_ptr() != y.data_ptr()
+    tables, prev = before.tables, before.prev_counts
+    assert len(prev) == 4 and all(
+        any(c is tb.count for tb in tables) for c in prev)
+    buffers = [tb.count for tb in g.a[2]]
+    assert all(any(c is b for b in buffers) for c in g.b[2])
+
+
+def test_replayed_outputs_share_one_clone_of_a_shared_tensor(stub_graphs):
+    """The network graph's new state holds each prev_count as the very
+    tensor of its level's table count; a replayed frame hands back one
+    fresh clone of it, the same tensor in both places, as an eager frame
+    hands back one tensor."""
+    g, _, before, after = _second_frame(
+        _card(engine.make_streaming_inference(_model(), CFG, RT)),
+        _sequences())
+    _, static, _ = g.out
+    for state in (before, static, after):
+        for site, c in zip(SITES, state.prev_counts, strict=True):
+            assert c is state.tables[site_level(CFG, site)].count, site
+    held = {id(x) for x in _tensors(static)}
+    assert not [x for x in _tensors(after) if id(x) in held]
+    assert len({id(x) for x in _tensors(after)}) == len(held)
+
+
+def test_non_tensor_leaves_pass_through(stub_graphs):
+    """The walker rebuilds tuples, lists, dicts, NamedTuples and
+    dataclasses and hands on what is not a tensor as it is.  The first
+    frame's Python prev_counts reach its captured network unchanged, and a
+    replayed frame's state counts on from the caller's ``t``."""
+    x, gen = torch.ones(2), torch.Generator()
+    tree = (1, [None, "s", x], {"g": gen, "x": x}, NeighborTable(x, x),
+            SeqState(h=(x,), prev_counts=(1, x), t=3))
+    got = engine._tree_map(lambda a: a + 1, tree)
+    assert type(got) is tuple and type(got[1]) is list
+    assert type(got[3]) is NeighborTable and type(got[4]) is SeqState
+    assert got[0] == 1 and got[1][:2] == [None, "s"] and got[2]["g"] is gen
+    assert got[4].t == 3 and got[4].prev_counts[0] == 1
+    assert got[4].tables is None
+    assert all(torch.equal(a, x + 1) for a in engine._leaves(got))
+    assert len(engine._leaves(got)) == 6
+
+    fns = _card(engine.make_streaming_inference(_model(), CFG, RT))
+    seqs = _sequences()
+    _run(fns, seqs[0])
+    graphs = fns[1].graphs
+    (first,) = [g for k, g in graphs.graphs.items() if k[0]]
+    assert first.b[2] == (1, 1, 1, 1)
+    _, states = _run(fns, seqs[1])
+    assert graphs.counts["replays"] == T
+    assert [s.t for s in states] == list(range(1, T + 1))
+
+
+def test_a_tensor_in_both_parts_is_copied_once(stub_graphs):
+    """A tensor that both parts read (the offline values) has one static
+    buffer, copied once a replay; a tensor of another identity in its
+    place in ``b`` is copied into it after the lattice graph replays."""
+
+    class Counted(torch.Tensor):
+        copies = 0
+
+        def copy_(self, src, non_blocking=False):
+            Counted.copies += 1
+            return super().copy_(src, non_blocking)
+
+    def lattice(p, v):
+        return p * v
+
+    def network(structures, v, gen):
+        return {"out": structures + v, "gen": gen}
+
+    p, v = torch.arange(3.0), torch.full((3,), 2.0)
+    g = engine._UnitGraphs(lattice, network, (p, v), (v, None), "pool")
+    assert g.b[0] is g.a[1] and g.b[1] is None
+    memo = {}
+    g.a, g.b = (engine._tree_map(
+        lambda t: memo.setdefault(id(t), t.as_subclass(Counted)), x)
+        for x in (g.a, g.b))
+    p2, v2 = torch.arange(3.0) + 1, torch.full((3,), 3.0)
+    out = g((p2, v2), (v2, None), "test", {})
+    assert Counted.copies == 2
+    assert torch.equal(out["out"], p2 * v2 + v2) and out["gen"] is None
+    out = g((p2, v2), (v2 + 1, None), "test", {})
+    assert Counted.copies == 5
+    assert torch.equal(out["out"], p2 * v2 + v2 + 1)
 
 
 @pytest.fixture

@@ -137,18 +137,26 @@ def _tiny(rt=TINY_RT, **cfg_kw):
     return model, state, train_step, eval_step
 
 
-@pytest.mark.parametrize("remat", ["none", "selective"])
-def test_remat_modes_give_the_same_gradients(batch, remat):
+@pytest.mark.parametrize("remat,packed", [
+    pytest.param("none", False, id="none"),
+    pytest.param("selective", False, id="selective"),
+    pytest.param("none", True, id="none-packed"),
+    pytest.param("selective", True, id="selective-packed")])
+def test_remat_modes_give_the_same_gradients(batch, remat, packed,
+                                             monkeypatch):
     """Rematerialisation recomputes the same functions on the same inputs,
     so the loss is bit-equal to full remat's; autograd sums a parameter's
     gradient contributions in another order, which can flip a bf16
     rounding of an operand gradient, so the gradients are held to a cosine
     of 0.9999.  The ``TINY`` widths with the flagship's geometry and
     classes: its 4 frames of 1,024 points and its trims, the same seed-0
-    weights in both models.  Measured at the flagship widths
+    weights in both models; the pointnet max on the default route (one K4
+    scan) and on the packed one (``TLN_MAXSCAN_PACKED=1``: K5, then K4 over
+    its summaries).  Measured at the flagship widths
     (scripts/torch_cpu_determinism.py): 1.000000000 on one thread in every
     run; 0.99994554 and 0.99999794 in two runs on 8 threads of 8 idle
     cores."""
+    monkeypatch.setenv("TLN_MAXSCAN_PACKED", "1" if packed else "0")
     full, other = (_tiny(dict(RT, remat_mode=m), frames_per_seq=4,
                          nr_classes=ModelConfig().nr_classes)
                    for m in ("full", remat))

@@ -167,17 +167,3 @@ def loop_rank(rank: int, world: int, store: str, cfg_paths) -> dict:
     finally:
         pmesh.close(mesh)
 
-
-def bench_streaming_tiny() -> None:
-    """``bench_streaming.run`` at the tiny sizes with two streams, for
-    ``torchrun``: with a world of two ranks the streams go over them."""
-    from temporal_latticenet_tpu_torch import bench_streaming
-
-    torch.set_num_threads(1)
-    cfg = ModelConfig(**dict(TINY_CFG, frames_per_seq=4))
-    bench_streaming.run(RuntimeConfig(**TINY_RT), cfg, iters=1, streams=2,
-                        device="cpu")
-
-
-if __name__ == "__main__":
-    bench_streaming_tiny()
