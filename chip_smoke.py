@@ -65,11 +65,15 @@ Phases, in order; any failure exits non-zero without the final line:
    log-probability difference, and the launches of every kernel;
 8. the flagship training step at full width on the packed route (BPTT
    through the 4 frames with full remat, 0.5 Lovász + 0.5 NLL, AdamW with
-   amsgrad, lr 1e-3, weight decay 1e-3): one warm step and
-   ``TRAIN_STEPS`` timed steps on one batch, with seconds per step, peak
-   device memory, loss and gradient norms per step, the launches of every
-   kernel in one step, and under ``torch.profiler`` the device time per
-   step of every hand-written kernel and the device's busy share;
+   amsgrad, lr 1e-3, weight decay 1e-3), served as it is on the card: one
+   warm step (eager; its key's CUDA graphs captured) and ``TRAIN_STEPS``
+   timed replayed steps on one batch, with seconds per step, peak device
+   memory, loss and gradient norms per step, the launches of every kernel
+   in the eager step, the graph counters, and under ``torch.profiler`` the
+   replayed steps' kernels by name (equal to the eager step's launches),
+   their device time per step of every hand-written kernel and the
+   device's busy share; then one eager step and one replayed step under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in either);
 9. the training step's gradients on the card and on the CPU at the reduced
    geometry, within the bf16 tolerance of the CPU test against the JAX
    package, on both routes of the pointnet max: the default one (K4, the
@@ -136,8 +140,10 @@ Phases, in order; any failure exits non-zero without the final line:
     loader's milliseconds per window, the loop's seconds per step (median
     and quartiles) beside the bare training step's on a window loaded in
     advance, the valid and eval seconds per sequence, the host syncs of
-    one loop step, peak memory, and the K1-K4 launches and device time of
-    one loop step under ``torch.profiler``; it fails unless the losses are
+    one loop step, peak memory, and the K1-K4 launches (by kernel name:
+    the step replays the CUDA graphs of the first, eager one) and device
+    time of one loop step under ``torch.profiler``; it fails unless the
+    losses are
     finite, the reloaded checkpoint gives the trained model's
     log-probabilities bit for bit, a resume from the epoch checkpoint
     gives the next two steps' losses of continuing bit for bit (and a
@@ -194,8 +200,8 @@ Phases, in order; any failure exits non-zero without the final line:
     the generalization run's flags (no moving actors, augmentation,
     selective remat); then ``overfit_lidar --smoke`` for 4 epochs, its
     valid ``.label`` files scored again by ``evaluate_semantics``.  Each
-    run: finite losses, K1-K4 launched in every training step and K5 in
-    none, the epochs trained (the resume only the missing one), one
+    run: finite losses, K1-K4 launched in the eager training steps (the
+    others replay their CUDA graphs) and K5 in none, the epochs trained (the resume only the missing one), one
     checkpoint an epoch, the JAX scripts' results keys with IoUs in
     [0, 1]; the overfit's last epoch's mean loss below its first's and
     ``evaluate_semantics``'s mIoU equal to ``run_eval``'s.  It reports each
@@ -1422,7 +1428,9 @@ def train_flagship(dev, forward_launches):
         torch.cuda.reset_peak_memory_stats()
         _cuda.reset_launch_counts()
         torch.cuda.synchronize()
-        state, logp, m = train_step(state, batch, 1.0)       # warm step
+        # the warm step runs eagerly (the wrappers count its launches; the
+        # capture after it launches nothing)
+        state, logp, m = train_step(state, batch, 1.0)
         torch.cuda.synchronize()
         launches = _cuda.launch_counts()
         losses.append(float(m["loss"]))
@@ -1439,7 +1447,34 @@ def train_flagship(dev, forward_launches):
         param_norms = {k: float(p.grad.float().norm())
                        for k, p in model.named_parameters()}
         events, wall_us = device_events(
-            lambda: train_step(state, batch, 1.0), PROFILE_STEPS)
+            lambda: train_step(state, batch, 1.0), PROFILE_STEPS,
+            launched={k: n * PROFILE_STEPS for k, n in launches.items()})
+        replayed = traced_launches(events, PROFILE_STEPS)
+        counts = dict(train_step.graphs.counts)
+        syncs_raised = {}
+        for name, card in (("eager", False), ("replayed", True)):
+            train_step.graphs.card = card
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, _, _ = train_step(state, batch, 1.0)
+            except RuntimeError as e:
+                syncs_raised[name] = str(e)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    # the profiler window may be taken again (``device_events``)
+    want = dict(captures=1, replays=counts["replays"] + 1, eager=2)
+    if counts["replays"] < TRAIN_STEPS + PROFILE_STEPS or \
+            dict(train_step.graphs.counts) != want:
+        raise AssertionError(f"graph counters {train_step.graphs.counts}, "
+                             f"expected {want}")
+    if syncs_raised:
+        raise AssertionError(f"host syncs in a training step: "
+                             f"{syncs_raised}")
+    if any(replayed[k] != launches[k] for k in KERNELS):
+        raise AssertionError(f"the replayed step launched {replayed} a "
+                             f"step, the eager one {launches}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched in the training step: "
@@ -1467,7 +1502,8 @@ def train_flagship(dev, forward_launches):
     return dict(steps=TRAIN_STEPS, seconds_per_step=statistics.median(secs),
                 quartiles=quartiles(secs), seconds_all=secs,
                 peak_mem_gb=peak_gb, losses=losses, grad_norms=norms,
-                launches=launches, nr_vertices=int(m["nr_vertices"]),
+                launches=launches, replayed_launches=replayed,
+                graph_counts=counts, nr_vertices=int(m["nr_vertices"]),
                 vertex_overflow=bool(m["vertex_overflow"]),
                 param_grad_norm_min=min(v for k, v in param_norms.items()
                                         if not k.endswith(UNREAD_PARAMS)),
@@ -2301,18 +2337,21 @@ def loop_flagship(dev):
                                  f"valid sequences")
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite losses {losses}")
-        step_launches = probe.launches("train", LOOP_TIMED[0])
+        events, wall_us = probe.events
+        # the first step runs eagerly (the wrappers count its launches);
+        # the later ones replay its CUDA graphs, whose kernels no wrapper
+        # counts: the profiled step's are counted by name
+        eager_step = probe.steps("train")[0][3]
+        step_launches = traced_launches(events, 1)
         missing = [k for k in FORWARD_KERNELS
                    if launches_run[k] == 0 or step_launches[k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched in the loop: "
                                  f"{missing}")
         step_s = probe.seconds("train", LOOP_TIMED)
-        events, wall_us = probe.events
         prof = device_summary(events, wall_us, 1, "step")
         # one loop step cannot be profiled again: its losses are reported
-        prof["profiler_lost"] = lost_launches(
-            events, probe.launches("train", LOOP_PROFILE_STEP))
+        prof["profiler_lost"] = lost_launches(events, eager_step)
         syncs = probe.syncs
 
         # the checkpoint round trip: the epoch file reloaded into a fresh
@@ -3062,17 +3101,18 @@ def measured_run(fn, argv, cfg_path=None, windows: int = LOADER_WINDOWS):
 
 
 def check_experiment(name, r, keys, ckpt_dir=None, epochs=None):
-    """Phase 19's checks of one run: finite losses; K1-K4 launched in every
-    training step and K5 in none; the trained epochs; one checkpoint an
-    epoch; the results' keys and IoUs."""
+    """Phase 19's checks of one run: finite losses; K1-K4 launched in the
+    eager training steps (a replayed step calls no wrapper; phase 8 holds
+    its kernels by name to the eager step's) and K5 in none; the trained
+    epochs; one checkpoint an epoch; the results' keys and IoUs."""
     if not r["losses_finite"]:
         raise AssertionError(f"{name}: non-finite losses")
     if not r["steps"]:
         raise AssertionError(f"{name}: no training step")
-    idle = [k for k in FORWARD_KERNELS if r["launches_per_step_min"][k] == 0]
+    idle = [k for k in FORWARD_KERNELS if r["launches_per_step_max"][k] == 0]
     if idle:
         raise AssertionError(f"{name}: steps without {idle}: "
-                             f"{r['launches_per_step_min']}")
+                             f"{r['launches_per_step_max']}")
     if r["launches_run"]["sorted_segment_max_window"]:
         raise AssertionError(f"{name}: K5 launched off the packed route")
     if epochs is not None and r["epochs"] != list(epochs):
@@ -3291,6 +3331,7 @@ def main(argv=None) -> int:
                 f"{train['quartiles']}) on {dline}; peak "
                 f"{train['peak_mem_gb']:.2f} GB; losses {train['losses']}; "
                 f"launches {train['launches']}; "
+                f"graphs {train['graph_counts']}; "
                 f"{train['device_ms_per_step']:.2f} device ms per step, "
                 f"device busy {train['device_busy_share']:.3f}; "
                 f"hand-written {json.dumps(train['hand_written'])}")
@@ -3497,9 +3538,9 @@ def main(argv=None) -> int:
             launches_autotune=((report.get("utilities") or {}).get(
                 "autotune_launches") or {}).get(name, 0),
             launches_experiments_step={
-                run: r["launches_per_step_min"].get(name, 0)
+                run: r["launches_per_step_max"].get(name, 0)
                 for run, r in (report.get("experiments") or {}).items()
-                if "launches_per_step_min" in r},
+                if "launches_per_step_max" in r},
             cases=k.get("cases")))
     report["device_line"] = dline
     report["profiler_retries"] = PROFILER_RETRIES

@@ -363,8 +363,9 @@ def mask_rows(values: torch.Tensor, count) -> torch.Tensor:
 
 
 # adjoint tap pairing: neighbor_offsets lists [+o_0..+o_d, -o_0..-o_d], so
-# "i sees j at tap k" <=> "j sees i at tap (k + d+1) % 2(d+1)"
-_PAIR_3D = tuple((k + 4) % 8 for k in range(8))
+# "i sees j at tap k" <=> "j sees i at tap (k + d+1) % 2(d+1)": a roll of
+# the 8 taps by 4
+_PAIR_SHIFT_3D = 4
 
 
 class _Gather8Sym(torch.autograd.Function):
@@ -372,9 +373,10 @@ class _Gather8Sym(torch.autograd.Function):
     (``lattice_ops._gather8_sym``): the one-hop offsets come in +/- pairs,
     so "who reads row j at tap k" is ``idx8[j, pair(k)]``, and the
     cotangent is one flat gather through the same table at
-    ``inv * 8 + tap``, summed over taps in float32.  Requires idx8 in
-    neighbor_offsets order and zero cotangents at rows 0 and >= count
-    upstream (the ``mask_rows`` invariant)."""
+    ``inv * 8 + tap``, summed over taps in float32.  The pairing is a roll
+    of the taps on the device, so the backward makes no host sync.
+    Requires idx8 in neighbor_offsets order and zero cotangents at rows 0
+    and >= count upstream (the ``mask_rows`` invariant)."""
 
     @staticmethod
     def forward(ctx, values, idx8):
@@ -386,7 +388,7 @@ class _Gather8Sym(torch.autograd.Function):
         with span("tln.backward._Gather8Sym"):
             (idx8,) = ctx.saved_tensors
             cap, taps, cin = dg.shape
-            inv = idx8[:, list(_PAIR_3D)]
+            inv = torch.roll(idx8, _PAIR_SHIFT_3D, dims=1)
             fi = inv * taps + torch.arange(taps, device=idx8.device)[None, :]
             g = dg.reshape(cap * taps, cin)[fi]
             acc = torch.where((inv > 0)[..., None], g.to(torch.float32),

@@ -18,9 +18,12 @@ one of the network over it; it makes no host sync, so the host launches
 two graphs a sequence instead of some 4,700 operations.  The training
 step differentiates that forward end to end (backpropagation through time
 over the carried fusion states) under the loss of ``models/losses.py`` and
-takes one AdamW(amsgrad) step; the slice head's dropout
-(``dropout_last_layer``) runs in the training step's final frame only, from
-a generator seeded by the step count and the sequence's index in the batch.
+takes one AdamW(amsgrad) step; on the card the step's gradients are
+served by replaying a lattice and a network graph (the network graph holds
+the forward, the loss and the backward), with AdamW run eagerly after
+them.  The slice head's dropout (``dropout_last_layer``) runs in the
+training step's final frame only, from a generator seeded by the step
+count and the sequence's index in the batch.
 A batch of B sequences takes the mean of their losses, with the gradient
 summed one sequence at a time; under a ``parallel.mesh.Mesh`` the ranks
 split the batch and all-reduce the gradient (data parallelism).
@@ -359,21 +362,19 @@ class _UnitGraphs:
 
 
 class _GraphCache:
-    """Serve-or-capture of one unit of work (a sequence, a frame) as CUDA
-    graphs.  A subclass gives the unit's ``key`` and its ``parts``:
-    ``(lattice, network, a, b)``, the unit being ``network(lattice(*a),
-    *b)``; ``unit`` names the spans of its two parts, ``tln.lattice.<unit>``
-    and ``tln.model.<unit>``.
+    """Serve-or-capture of one unit of work (a sequence, a frame, a
+    training step's gradients) as CUDA graphs.  A subclass gives the unit's
+    ``key`` and its ``parts``: ``(lattice, network, a, b)``, the unit being
+    ``network(lattice(*a), *b)``; ``unit`` names the spans of its two
+    parts, ``tln.lattice.<unit>`` and ``tln.model.<unit>``.
 
     A unit's work is fixed by its key.  The first unit of a key runs
     eagerly (its warm-up: every lazily made constant and library handle
     exists afterwards), then the key's graphs are captured
     (:class:`_UnitGraphs`), all from one memory pool, with spans muted;
     every later unit of the key copies its inputs into the graphs' static
-    buffers and replays them.  Units run eagerly off the card (``card``,
-    the model's device), with gradients on (a replay records no autograd
-    graph) and inside ``LNNSeq.sow_aux`` (a replay makes no Python-side
-    records).
+    buffers and replays them.  Units run eagerly where :meth:`replayable`
+    says no.
 
     ``counts``: ``captures`` (keys captured), ``replays`` and ``eager``
     (units served each way)."""
@@ -387,12 +388,21 @@ class _GraphCache:
         self.pool = None
         self.counts = {"captures": 0, "replays": 0, "eager": 0}
 
-    def __call__(self, name: str, args: tuple, **ids):
+    def replayable(self) -> bool:
+        """Whether a unit may be served from graphs now: on the card
+        (``card``, the model's device), with gradients off (a replay
+        records no autograd graph) and outside ``LNNSeq.sow_aux`` (a replay
+        makes no Python-side records)."""
+        return (self.card and not torch.is_grad_enabled()
+                and not self.model.sowing)
+
+    def __call__(self, name: str, args: tuple, then=None, **ids):
         """Serve one unit, ``args``, inside the engine span ``name`` (with
         ``ids`` and ``graph``: 1 for a replay, 0 for an eager unit); the
-        spans of its parts carry ``ids`` too."""
-        replayable = (self.card and not torch.is_grad_enabled()
-                      and not self.model.sowing)
+        spans of its parts carry ``ids`` too.  With ``then``, the result is
+        ``then(outputs)``, run inside the engine span after the unit and
+        any capture of its key."""
+        replayable = self.replayable()
         key = self.key(*args) if replayable else None
         graphs = self.graphs.get(key)
         lattice, network, a, b = self.parts(*args)
@@ -400,17 +410,19 @@ class _GraphCache:
                   **ids):
             if graphs is not None:
                 self.counts["replays"] += 1
-                return graphs(a, b, self.unit, ids)
-            self.counts["eager"] += 1
-            with span(f"tln.lattice.{self.unit}", **ids):
-                structures = lattice(*a)
-            out = network(structures, *b)
-        if replayable:
-            if self.pool is None:
-                self.pool = torch.cuda.graph_pool_handle()
-            self.graphs[key] = _UnitGraphs(lattice, network, a, b, self.pool)
-            self.counts["captures"] += 1
-        return out
+                out = graphs(a, b, self.unit, ids)
+            else:
+                self.counts["eager"] += 1
+                with span(f"tln.lattice.{self.unit}", **ids):
+                    structures = lattice(*a)
+                out = network(structures, *b)
+                if replayable:
+                    if self.pool is None:
+                        self.pool = torch.cuda.graph_pool_handle()
+                    self.graphs[key] = _UnitGraphs(lattice, network, a, b,
+                                                   self.pool)
+                    self.counts["captures"] += 1
+            return out if then is None else then(out)
 
 
 class SequenceGraphs(_GraphCache):
@@ -753,6 +765,110 @@ def create_train_state(cfg: ModelConfig, rt: RuntimeConfig, lr: float,
                                                   weight_decay))
 
 
+def _batch_metrics(outs):
+    """A batch's metrics and its stacked logp from each sequence's (loss,
+    logp, loss parts, aux)."""
+    def mean(xs):
+        return torch.stack([x.detach() for x in xs]).mean()
+    m = {"loss": mean([o[0] for o in outs]),
+         "lovasz": mean([o[2]["lovasz"] for o in outs]),
+         "nll": mean([o[2]["nll"] for o in outs]),
+         "nr_vertices": torch.stack(
+             [o[3]["nr_vertices"] for o in outs]).max(),
+         "vertex_overflow": torch.stack(
+             [o[3]["vertex_overflow"] for o in outs]).any()}
+    if "dropped_share" in outs[0][3]:
+        m["dropped_share"] = mean([o[3]["dropped_share"] for o in outs])
+    return m, torch.stack([o[1].detach() for o in outs])
+
+
+def _zero_unreached(params: dict) -> None:
+    """A zero gradient for each parameter the loss does not reach, so that
+    AdamW still decays it, as the optax chain does."""
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def _grad_norms(params: dict, watch_grads: bool) -> dict:
+    """``grad_norm``, the global norm of the gradients, and with
+    ``watch_grads`` ``grad_norms``, {parameter name: its gradient's
+    norm}."""
+    gsq = torch.stack([(p.grad.float() ** 2).sum() for p in params.values()])
+    m = {"grad_norm": torch.sqrt(gsq.sum())}
+    if watch_grads:
+        m["grad_norms"] = dict(zip(params, torch.sqrt(gsq)))
+    return m
+
+
+class StepGraphs(_GraphCache):
+    """The training step's gradients as CUDA graphs (:class:`_GraphCache`):
+    the sequence lattice of each sequence of the batch
+    (:func:`_sequence_parts`), then, one sequence at a time, the network
+    under the run's remat, the loss of its last frame and ``.backward()``
+    (of the loss over B), a zero gradient for each parameter the loss does
+    not reach, the batch's metrics and the gradient norms.  The unit
+    returns (metrics, logp, gradients); AdamW runs after it, eagerly
+    (:func:`make_train_step`).  Capture leaves the captured gradients in
+    ``.grad``, so the step binds each parameter's ``.grad`` to the unit's
+    gradients before AdamW reads them: the warm-up's own, or a replay's.
+
+    Replays only where the whole step can be captured: on the card, with
+    gradients on, outside ``LNNSeq.sow_aux``, without a mesh (the
+    all-reduce stays eager) and without dropout (a step's generator cannot
+    be baked into a graph).  A step's key: the shapes and dtypes of its
+    positions, values, labels and mask (the batch size among them), the
+    pointnet max's route, the remat mode and ``watch_grads``."""
+
+    unit = "step"
+
+    def __init__(self, model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
+                 remat: str, ignore_index: int, watch_grads: bool,
+                 mesh=None):
+        super().__init__(model)
+        self.lattice, self.network = _sequence_parts(model, cfg, rt, remat)
+        self.remat, self.watch_grads = remat, watch_grads
+        self.ignore_index = ignore_index
+        self.whole = mesh is None and cfg.dropout_last_layer == 0
+        self.params = dict(model.named_parameters())
+
+    def replayable(self) -> bool:
+        return (self.card and self.whole and torch.is_grad_enabled()
+                and not self.model.sowing)
+
+    def key(self, p, v, labels, m):
+        return (tuple((x.shape, x.dtype) for x in (p, v, labels, m)),
+                segment.packed_route(), self.remat, self.watch_grads)
+
+    def parts(self, p, v, labels, m):
+        return (self.lattices, self.gradients, (p, v, m),
+                (v, labels[:, -1], m[:, -1]))
+
+    def lattices(self, p, v, m):
+        return tuple(self.lattice(p[i], v[i], m[i])
+                     for i in range(p.shape[0]))
+
+    def gradients(self, structures, v, labels, mask):
+        for p in self.params.values():
+            p.grad = None
+        b = len(structures)
+        outs = []
+        for i, st in enumerate(structures):
+            with span("tln.train.forward"):
+                logp, _, aux = self.network(st, v[i], None)
+            with span("tln.train.loss"):
+                loss, parts = segmentation_loss(logp, labels[i], mask[i],
+                                                self.ignore_index)
+            with span("tln.train.backward"):
+                (loss / b).backward()
+            outs.append((loss, logp, parts, aux))
+        _zero_unreached(self.params)
+        with span("tln.train.loss"):
+            metrics, logp = _batch_metrics(outs)
+        metrics.update(_grad_norms(self.params, self.watch_grads))
+        return metrics, logp, tuple(p.grad for p in self.params.values())
+
+
 def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
                     ignore_index: int = 0, watch_grads: bool = False,
                     mesh=None):
@@ -779,6 +895,13 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     (its dropout masks) without an optimizer step.  The rematerialisation
     is ``rt.remat_mode``.
 
+    On the card, without a mesh and without dropout, ``train_step`` serves
+    its gradients by replaying the CUDA graphs of the batch's key
+    (:class:`StepGraphs`, ``train_step.graphs``) and runs AdamW eagerly
+    after them, so that a learning-rate scale set each step is read as it
+    is; every other step, and ``grad_step``, ``loss_step`` and
+    ``eval_step``, run eagerly.
+
     With a ``parallel.mesh.Mesh``, each rank passes its own ``B / R``
     sequences of the global batch (``mesh.shard_batch``): ``train_step`` and
     ``grad_step`` average the ranks' gradients in one all-reduce before the
@@ -790,7 +913,10 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
     if mesh is not None and not isinstance(mesh, pmesh.Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
-    seq_fwd = sequence_forward(model, cfg, rt, remat=rt.remat_mode or "full")
+    remat = rt.remat_mode or "full"
+    seq_fwd = sequence_forward(model, cfg, rt, remat=remat)
+    steps = StepGraphs(model, cfg, rt, remat, ignore_index, watch_grads,
+                       mesh)
     dev = model.device
     params = dict(model.named_parameters())
     rank = mesh.rank if mesh is not None else 0
@@ -806,22 +932,6 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
             mask = torch.as_tensor(batch.mask[i][-1], device=dev)
             loss, parts = segmentation_loss(logp, labels, mask, ignore_index)
         return loss, logp, parts, aux
-
-    def batch_metrics(outs):
-        """The batch's metrics from each sequence's (loss, logp, parts,
-        aux)."""
-        def mean(xs):
-            return torch.stack([x.detach() for x in xs]).mean()
-        m = {"loss": mean([o[0] for o in outs]),
-             "lovasz": mean([o[2]["lovasz"] for o in outs]),
-             "nll": mean([o[2]["nll"] for o in outs]),
-             "nr_vertices": torch.stack(
-                 [o[3]["nr_vertices"] for o in outs]).max(),
-             "vertex_overflow": torch.stack(
-                 [o[3]["vertex_overflow"] for o in outs]).any()}
-        if "dropped_share" in outs[0][3]:
-            m["dropped_share"] = mean([o[3]["dropped_share"] for o in outs])
-        return m, torch.stack([o[1].detach() for o in outs])
 
     def reduce_metrics(m):
         """The rank's metrics -> the global batch's (means averaged over the
@@ -847,35 +957,44 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
             with span("tln.train.backward"):
                 (out[0] / b).backward()
             outs.append(out)
-        # parameters the loss does not reach get a zero gradient, so that
-        # AdamW still decays them, as the optax chain does
-        for p in params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        _zero_unreached(params)
         with span("tln.train.loss"):
-            metrics, logp = batch_metrics(outs)
+            metrics, logp = _batch_metrics(outs)
         if mesh is not None:
             pmesh.all_reduce_mean(mesh, [p.grad for p in params.values()])
             metrics = reduce_metrics(metrics)
         return metrics, logp
 
+    def optimizer_step(state: TrainState, lr_scale):
+        optim.set_lr_scale(state.optimizer, lr_scale)
+        state.optimizer.step()
+
     def train_step(state: TrainState, batch: SeqBatch, lr_scale):
-        with span("tln.engine.train_step", unit=next(_UNITS)):
-            metrics, logp = gradients(batch, state.step)
-            with span("tln.train.optimizer"):
-                gsq = torch.stack([(p.grad.float() ** 2).sum()
-                                   for p in params.values()])
-                metrics["grad_norm"] = torch.sqrt(gsq.sum())
-                if watch_grads:
-                    metrics["grad_norms"] = dict(zip(params, torch.sqrt(gsq)))
-                optim.set_lr_scale(state.optimizer, lr_scale)
-                state.optimizer.step()
+        if steps.replayable():
+            def bind_and_step(out):
+                metrics, logp, grads = out
+                for p, g in zip(params.values(), grads, strict=True):
+                    p.grad = g
+                with span("tln.train.optimizer"):
+                    optimizer_step(state, lr_scale)
+                return metrics, logp
+            metrics, logp = steps(
+                "tln.engine.train_step",
+                tuple(torch.as_tensor(a, device=dev) for a in batch),
+                then=bind_and_step)
+        else:
+            steps.counts["eager"] += 1
+            with span("tln.engine.train_step", unit=next(_UNITS), graph=0):
+                metrics, logp = gradients(batch, state.step)
+                with span("tln.train.optimizer"):
+                    metrics.update(_grad_norms(params, watch_grads))
+                    optimizer_step(state, lr_scale)
         state.step += 1
         return state, logp, metrics
 
     def without_dropout(batch: SeqBatch):
-        return batch_metrics([loss_one(batch, i)
-                              for i in range(batch.positions.shape[0])])
+        return _batch_metrics([loss_one(batch, i)
+                               for i in range(batch.positions.shape[0])])
 
     @torch.no_grad()
     def loss_step(batch: SeqBatch):
@@ -895,4 +1014,5 @@ def make_train_step(model: LNNSeq, cfg: ModelConfig, rt: RuntimeConfig,
 
     train_step.loss_step = loss_step
     train_step.grad_step = grad_step
+    train_step.graphs = steps
     return train_step, eval_step
