@@ -337,7 +337,7 @@ STREAMED_EXPERIMENTS = ("pointnet_no_local_mean", "attention_pool")
 # the kernels every experiment's forward launches (K3 also, with the local
 # mean; never K4 or K5: an experiment runs the per-frame pointnet)
 ABLATION_KERNELS = ("fused_simplex_pack", "sorted_segment_scan",
-                    "lattice_conv")
+                    "lattice_conv", "masked_gn_relu")
 ABLATION_STEPS = 3     # timed training steps after the warm one
 DROPOUT = 0.2
 # the dropped share of the 131,072 x 192 slice features lies within 4e-4
@@ -395,7 +395,18 @@ KERNELS = {
     "lattice_conv": dict(
         source="temporal_latticenet_tpu_torch/csrc/lattice_conv.cu",
         replaces=None),
+    # no Pallas kernel: the JAX package leaves GroupNorm to XLA
+    "masked_gn_relu": dict(
+        source="temporal_latticenet_tpu_torch/csrc/masked_gn.cu",
+        replaces=None),
+    "masked_gn_relu_backward": dict(
+        source="temporal_latticenet_tpu_torch/csrc/masked_gn.cu",
+        replaces=None),
 }
+# the one kernel counted for each call of a wrapper that launches several
+FIRST_KERNEL = {"seg_sum_tails": "seg_sum_tails_scan",
+                "masked_gn_relu": "masked_gn_sum_kernel",
+                "masked_gn_relu_backward": "masked_gn_bwd_sums_kernel"}
 # the kernels the default-route forward launches (K5 only on the packed
 # route)
 FORWARD_KERNELS = ("fused_simplex_pack", "sorted_segment_scan",
@@ -468,13 +479,14 @@ def lost_launches(events, launched: dict) -> dict:
 
 
 def traced_launches(events, calls: int) -> dict:
-    """Launches of each of K1-K5 per call, counted by kernel name in
-    ``events`` (K3 by its ``seg_sum_tails_scan`` kernel alone): what a
-    CUDA graph's replay launched, which no wrapper counts."""
+    """Launches of each hand-written kernel per call, counted by kernel
+    name in ``events`` (K3 and K7 by the first kernel of a call alone,
+    ``FIRST_KERNEL``): what a CUDA graph's replay launched, which no
+    wrapper counts."""
     seen = {}
     for e in events:
         k = hand_written(e.name)
-        if k and (k != "seg_sum_tails" or "seg_sum_tails_scan" in e.name):
+        if k and FIRST_KERNEL.get(k, "") in e.name:
             seen[k] = seen.get(k, 0) + 1
     return {k: seen.get(k, 0) / calls for k in KERNELS}
 
@@ -537,7 +549,8 @@ def split_ms(events, iters: int) -> dict:
     """Device ms per call of each kernel name (memsets under "Memset")."""
     out = {}
     for e in events:
-        name = re.sub(r"^void ", "", e.name).split("(")[0][:48]
+        name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                      e.name).split("(")[0][:48]
         ms = e.time_range.elapsed_us() / iters / 1e3
         out[name] = out.get(name, 0.0) + ms
     return out
@@ -856,6 +869,7 @@ def check_kernels(dev, inp):
          q * 4 + q * 64 * 4 + b * 8 + b * 64 * 4, q * 64, tails_equal)
 
     check_lattice_conv(dev, inp["tables"], case)
+    check_masked_gn(dev, inp["tables"], case)
 
     # one entry per kernel: the times of its first case above, the largest
     # error over all of its cases, and the cases themselves
@@ -926,6 +940,72 @@ def check_lattice_conv(dev, tables, case):
              lambda: torch.mm(rows_b, w_b, out_dtype=torch.float32),
              nbytes, 2 * occupied * 9 * cin * cout, compare,
              BF16_OPS_PER_S)
+
+
+# (level, C) of the flagship forward's GroupNorm + ReLUs: each width that
+# runs at each level
+GN_SHAPES = ((0, 64), (0, 128), (0, 192), (1, 128), (2, 256))
+GN_RTOL = 1e-4    # of the largest value of each output
+
+
+def check_masked_gn(dev, tables, case):
+    """K7's forward and backward against their plain versions on the
+    flagship lattice's final-frame levels (their rows and counts) at each
+    width: each output within ``GN_RTOL`` of its largest value (float32
+    sums of up to 80,000 terms in another order; the bounds derived term by
+    term are in tests/test_torch_group_norm.py), rows 0 and from the count
+    up zero, bit-equal from call to call."""
+    from temporal_latticenet_tpu_torch.ops import group_norm as gnm
+
+    eps = 1e-5
+    g = torch.Generator(device=dev).manual_seed(11)
+    for lv, c in GN_SHAPES:
+        nbr, count = tables[lv]
+        rows = nbr.idx.shape[0]
+        live = gnm.valid_rows(rows, count, dev)
+        x = torch.randn(rows, c, generator=g, device=dev) * 1.5 + 0.3
+        w = torch.randn(c, generator=g, device=dev)
+        b = torch.randn(c, generator=g, device=dev) * 0.5
+        dy = torch.randn(rows, c, generator=g, device=dev)
+        _, stats = gnm.masked_gn_relu_forward(x, count, w, b, eps)
+
+        def forward():
+            return gnm.masked_gn_relu_forward(x, count, w, b, eps)[0]
+
+        def backward():
+            return gnm.masked_gn_relu_backward(dy, x, stats, count, w, b,
+                                               eps)
+
+        def within(kernel):
+            def compare(got, want):
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                err = [float((a.double() - e.double()).abs().max())
+                       for a, e in zip(got, want)]
+                ok = (all(d <= GN_RTOL * float(e.abs().max())
+                          for d, e in zip(err, want))
+                      and not got[0][~live].any())
+                again = kernel()
+                again = again if isinstance(again, tuple) else (again,)
+                ok = ok and all(torch.equal(a, e) for a, e in zip(got, again))
+                return (max(err), ok,
+                        f"|err| <= {GN_RTOL} of each output's largest value; "
+                        f"rows 0 and >= count zero; bit-equal from call to "
+                        f"call")
+            return compare
+
+        occupied = int(live.sum())
+        label = f"level {lv}: rows={rows} count={int(count)} C={c}"
+        # each input byte read once, each output byte written once
+        case("masked_gn_relu", label, forward,
+             lambda: gnm.masked_gn_relu_plain(x, count, w, b, eps), None,
+             occupied * c * 4 + rows * c * 4 + 2 * c * 4, 10 * occupied * c,
+             within(forward))
+        case("masked_gn_relu_backward", label, backward,
+             lambda: tuple(gnm.masked_gn_relu_backward_plain(
+                 dy, x, count, w, b, eps)), None,
+             2 * occupied * c * 4 + rows * c * 4 + 4 * c * 4,
+             14 * occupied * c, within(backward))
 
 
 # ---------------------------------------------------------------------------
@@ -1180,11 +1260,13 @@ def _busy_share(events, wall_us):
 
 
 def hand_written(kernel_name: str):
-    """Which of K1-K5 a device kernel name belongs to, or None.  K2 is
-    ``seg_scan_lookback``; K3 its ``seg_sum_tails_scan`` and
+    """Which wrapper of K1-K7 a device kernel name belongs to, or None.  K2
+    is ``seg_scan_lookback``; K3 its ``seg_sum_tails_scan`` and
     ``seg_sum_tails_gather``; K4 ``seg_max_lookback`` (K2, K3 and K4 share
-    the look-back scan, each under a kernel name of its own).  The memsets
-    of their tile states carry no kernel name and are not counted here."""
+    the look-back scan, each under a kernel name of its own); K7's forward
+    its three ``masked_gn_*`` kernels, its backward the two
+    ``masked_gn_bwd_*``.  The memsets of their tile states carry no kernel
+    name and are not counted here."""
     if "simplex_kernel" in kernel_name:
         return "fused_simplex_pack"
     if "seg_max_window_kernel" in kernel_name:
@@ -1197,6 +1279,10 @@ def hand_written(kernel_name: str):
         return "sorted_segment_max_u32"
     if "lattice_conv_kernel" in kernel_name:
         return "lattice_conv"
+    if "masked_gn_bwd_" in kernel_name:
+        return "masked_gn_relu_backward"
+    if "masked_gn_" in kernel_name:
+        return "masked_gn_relu"
     return None
 
 
@@ -1370,7 +1456,9 @@ def packed_forward(dev, data, model, fwd, rt):
             torch.cuda.synchronize()
             launches = _cuda.launch_counts()
     check_output(logp_k5, aux, rt, mask[-1])
-    missing = [k for k, v in launches.items() if v == 0]
+    # a forward launches every kernel but K7's backward
+    missing = [k for k, v in launches.items()
+               if v == 0 and k != "masked_gn_relu_backward"]
     if missing:
         raise AssertionError(f"kernels not launched on the packed route: "
                              f"{missing}")

@@ -20,19 +20,11 @@ import torch
 from torch import nn
 
 from ..ops import lattice_ops as lo
+from ..ops.group_norm import masked_gn_relu, masked_group_norm, valid_rows
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
-
-
-def gn_num_groups(channels: int) -> int:
-    """32 groups, or channels/2 when channels <= 32; else the largest
-    divisor below."""
-    g = max(channels // 2, 1) if channels <= 32 else 32
-    while channels % g != 0:
-        g -= 1
-    return g
 
 
 def uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
@@ -104,24 +96,10 @@ class MaskedGroupNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x, count, mask=None):
-        cap, c = x.shape
-        groups = gn_num_groups(c)
-        cpg = c // groups
-        if mask is None:
-            rows = torch.arange(cap, device=x.device)
-            valid = (rows > 0) & (rows < count)
-        else:
-            valid = mask
-        vf = valid.to(torch.float32)[:, None, None]
-        n = torch.clamp(valid.to(torch.float32).sum(), min=1.0)
-        xg = x.reshape(cap, groups, cpg)
-        denom = n * cpg
-        mean = (xg * vf).sum(dim=(0, 2)) / denom
-        var = (((xg - mean[None, :, None]) ** 2) * vf).sum(dim=(0, 2)) / denom
-        inv = torch.rsqrt(var + self.epsilon)
-        y = ((xg - mean[None, :, None]) * inv[None, :, None]).reshape(cap, c)
-        y = y * self.weight + self.bias
-        return torch.where(valid[:, None], y, torch.zeros((), device=x.device))
+        valid = valid_rows(x.shape[0], count, x.device) if mask is None \
+            else mask
+        return masked_group_norm(x, valid, self.weight, self.bias,
+                                 self.epsilon)
 
 
 class Gn(nn.Module):
@@ -133,6 +111,14 @@ class Gn(nn.Module):
 
     def forward(self, x, count, mask=None):
         return self.gn(x, count, mask)
+
+    def relu(self, x, count, mask=None):
+        """``relu(self(x, count, mask))``; without a mask one
+        :func:`masked_gn_relu` (kernel K7 on the card)."""
+        if mask is not None:
+            return torch.relu(self.gn(x, count, mask))
+        return masked_gn_relu(x, count, self.gn.weight, self.gn.bias,
+                              self.gn.epsilon)
 
 
 class Conv1x1(Linear):
@@ -177,7 +163,7 @@ class GnRelu1x1(nn.Module):
         self.conv = Conv1x1(in_channels, out_channels, use_bias)
 
     def forward(self, x, count, mask=None):
-        return self.conv(torch.relu(self.gn(x, count, mask)), count, mask)
+        return self.conv(self.gn.relu(x, count, mask), count, mask)
 
 
 class GnReluConv(nn.Module):
@@ -188,7 +174,7 @@ class GnReluConv(nn.Module):
         self.conv = LatticeConv(in_channels, out_channels, use_bias, dtype)
 
     def forward(self, x, nbr, count):
-        return self.conv(torch.relu(self.gn(x, count)), nbr, count)
+        return self.conv(self.gn.relu(x, count), nbr, count)
 
 
 class ResnetBlock(nn.Module):
@@ -233,7 +219,7 @@ class GnReluCoarsen(nn.Module):
 
     def forward(self, fine_values, fine_count, link, coarse_nbr,
                 coarse_count):
-        x = torch.relu(self.gn(fine_values, fine_count))
+        x = self.gn.relu(fine_values, fine_count)
         pooled = lo.splat_to_coarse(x, link, coarse_nbr.idx.shape[0])
         pooled = lo.mask_rows(pooled, coarse_count)
         return self.conv(pooled, coarse_nbr, coarse_count)
@@ -250,7 +236,7 @@ class GnReluFinefy(nn.Module):
 
     def forward(self, coarse_values, coarse_count, coarse_nbr, link,
                 fine_count):
-        x = torch.relu(self.gn(coarse_values, coarse_count))
+        x = self.gn.relu(coarse_values, coarse_count)
         x = self.conv(x, coarse_nbr, coarse_count)
         return lo.mask_rows(lo.slice_to_fine(x, link), fine_count)
 

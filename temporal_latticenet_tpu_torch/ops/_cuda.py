@@ -39,13 +39,15 @@ SOURCES = {
     "seg_max": ("seg_max.cu", ()),
     "seg_max_window": ("seg_max_window.cu", ()),
     "lattice_conv": ("lattice_conv.cu", ()),
+    "masked_gn": ("masked_gn.cu", ()),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"fused_simplex_pack": 0, "sorted_segment_scan": 0,
             "seg_sum_tails": 0, "sorted_segment_max_u32": 0,
-            "sorted_segment_max_window": 0, "lattice_conv": 0}
+            "sorted_segment_max_window": 0, "lattice_conv": 0,
+            "masked_gn_relu": 0, "masked_gn_relu_backward": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -155,3 +157,4 @@ def stream_ptr() -> int:
 P = ctypes.c_void_p
 I64 = ctypes.c_int64
 I32 = ctypes.c_int
+F32 = ctypes.c_float

@@ -10,6 +10,8 @@ have a coverage contract, not one value: each row lies between the exact
 max over its last ``2 * window - 1`` same-run rows and the full-run max.
 """
 
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -489,14 +491,43 @@ def test_cuda_kernels_match_plain(cuda_device):
     ("void (anonymous namespace)::lattice_conv_kernel<float, 128>(float "
      "const*, long const*, long, __nv_bfloat16 const*, float const*, long "
      "const*, long, float*, int, int, int, int, int)", "lattice_conv"),
+    ("void (anonymous namespace)::masked_gn_sum_kernel<4>(float const*, "
+     "long const*, long, (anonymous namespace)::Layout, float*)",
+     "masked_gn_relu"),
+    ("void (anonymous namespace)::masked_gn_relu_out_kernel<1>(float const*, "
+     "long const*, long, (anonymous namespace)::Layout, float const*, float "
+     "const*, float, float const*, float*, float*)", "masked_gn_relu"),
+    ("void (anonymous namespace)::masked_gn_bwd_dx_kernel<4>(float const*, "
+     "float const*, long const*, long, (anonymous namespace)::Layout, ...)",
+     "masked_gn_relu_backward"),
     ("Memset (Device)", None),
     ("void at::native::vectorized_elementwise_kernel<4, "
      "at::native::CUDAFunctor_add<float>>(int, ...)", None),
 ])
 def test_chip_smoke_assigns_kernel_names(name, kernel):
-    """The profiler's kernel names map to K1-K6 by name: K4's look-back
-    kernel is never counted as K2's, nor K2's as K4's."""
+    """The profiler's kernel names map to K1-K7 by name: K4's look-back
+    kernel is never counted as K2's, nor K2's as K4's, nor K7's backward
+    as its forward."""
     assert chip_smoke.hand_written(name) == kernel
+
+
+def test_chip_smoke_counts_a_call_by_its_first_kernel():
+    """A replay's launches counted by name: a wrapper that launches several
+    kernels (K3, K7's forward and backward) counts one a call."""
+    names = (["void (anonymous namespace)::masked_gn_sum_kernel<4>(x)",
+              "void (anonymous namespace)::masked_gn_sq_kernel<4>(x)",
+              "void (anonymous namespace)::masked_gn_relu_out_kernel<4>(x)"]
+             * 2
+             + ["void (anonymous namespace)::masked_gn_bwd_sums_kernel<4>(x)",
+                "void (anonymous namespace)::masked_gn_bwd_dx_kernel<4>(x)",
+                "void seg_sum_tails_scan<4>(x)",
+                "void seg_sum_tails_gather(x)"])
+    events = [types.SimpleNamespace(name=n) for n in names]
+    got = chip_smoke.traced_launches(events, 1)
+    assert got["masked_gn_relu"] == 2
+    assert got["masked_gn_relu_backward"] == 1
+    assert got["seg_sum_tails"] == 1
+    assert got["lattice_conv"] == 0
 
 
 def test_cpu_path_does_not_count_launches():
