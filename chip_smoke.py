@@ -7,7 +7,7 @@ one NVIDIA GPU.
 Phases, in order; any failure exits non-zero without the final line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels K1-K6 from ``temporal_latticenet_tpu_torch/csrc``;
+2. build the CUDA kernels K1-K8 from ``temporal_latticenet_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the flagship main path gives it (inputs taken from a full-width lattice
    build), with its device time, its memory bound, the plain version's
@@ -34,7 +34,13 @@ Phases, in order; any failure exits non-zero without the final line:
    the count up exactly zero, bit-equal from call to call, its bound the
    larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s
    (bf16 tensor cores), its library call ``torch.mm(..., out_dtype=
-   torch.float32)`` over the materialised bf16 rows;
+   torch.float32)`` over the materialised bf16 rows; K8 (K6's backward:
+   dX and dW) runs on the same tables at the step's nine width pairs,
+   within ``k8_bounds`` of the float64 sums of its exact products (which
+   must reject the planted faults of ``k8_planted``: a bf16 cotangent, a
+   dropped 32-row step) and bit-equal from call to call, beside
+   ``lattice_conv_backward_plain`` and ``torch.mm`` of the plain
+   version's float32 products;
 4. the flagship 4-frame offline sequence forward at bench geometry (131,072
    padded points per frame, capacities 49152/24576/12288, trims 36864 and
    40960, sigma 0.6, seeded random weights) as it is served: after its
@@ -70,7 +76,8 @@ Phases, in order; any failure exits non-zero without the final line:
    timed replayed steps on one batch, with seconds per step, peak device
    memory, loss and gradient norms per step, the launches of every kernel
    in the eager step, the graph counters, and under ``torch.profiler`` the
-   replayed steps' kernels by name (equal to the eager step's launches),
+   replayed steps' kernels by name (equal to the eager step's launches,
+   K8's dX and dW once for every bf16 lattice convolution of a forward),
    their device time per step of every hand-written kernel and the
    device's busy share; then one eager step and one replayed step under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in either);
@@ -402,11 +409,22 @@ KERNELS = {
     "masked_gn_relu_backward": dict(
         source="temporal_latticenet_tpu_torch/csrc/masked_gn.cu",
         replaces=None),
+    # no Pallas kernel: the JAX package leaves K6's backward to XLA
+    "lattice_conv_dx": dict(
+        source="temporal_latticenet_tpu_torch/csrc/lattice_conv_bwd.cu",
+        replaces=None),
+    "lattice_conv_dw": dict(
+        source="temporal_latticenet_tpu_torch/csrc/lattice_conv_bwd.cu",
+        replaces=None),
 }
+# the wrappers only a backward launches
+BACKWARD_KERNELS = ("masked_gn_relu_backward", "lattice_conv_dx",
+                    "lattice_conv_dw")
 # the one kernel counted for each call of a wrapper that launches several
 FIRST_KERNEL = {"seg_sum_tails": "seg_sum_tails_scan",
                 "masked_gn_relu": "masked_gn_sum_kernel",
-                "masked_gn_relu_backward": "masked_gn_bwd_sums_kernel"}
+                "masked_gn_relu_backward": "masked_gn_bwd_sums_kernel",
+                "lattice_conv_dw": "lattice_conv_dw_kernel"}
 # the kernels the default-route forward launches (K5 only on the packed
 # route)
 FORWARD_KERNELS = ("fused_simplex_pack", "sorted_segment_scan",
@@ -870,6 +888,7 @@ def check_kernels(dev, inp):
 
     check_lattice_conv(dev, inp["tables"], case)
     check_masked_gn(dev, inp["tables"], case)
+    check_lattice_conv_backward(dev, inp["tables"], case)
 
     # one entry per kernel: the times of its first case above, the largest
     # error over all of its cases, and the cases themselves
@@ -940,6 +959,175 @@ def check_lattice_conv(dev, tables, case):
              lambda: torch.mm(rows_b, w_b, out_dtype=torch.float32),
              nbytes, 2 * occupied * 9 * cin * cout, compare,
              BF16_OPS_PER_S)
+
+
+# (level, Cin, Cout) of the flagship step's lattice convolutions, each pair
+# once: CONV_SHAPES and level 0's 128 -> 64
+BWD_CONV_SHAPES = ((0, 128, 64),) + CONV_SHAPES
+
+
+# dW's float32 sums: within K8_DW_SPREAD sqrt(n) 2^-24 (sqrt(sum p^2) + |S|)
+# of the exact sum S of their n products p (n = 3 occupied rows, three
+# MMAs a row).  On an H100 (the step's nine width pairs, 4 seeds) K8's
+# sums, read from its partials, came within 0.84 of that spread at 1 (the
+# error grows with a chunk's rows, as a truncating accumulation's does),
+# cuBLAS's float32 product within 0.38, and a cotangent rounded to bf16 at
+# a median of 64-156.  The worst-case bound, n 2^-24 sum|p|, is wider than
+# a bf16 step once n passes a few thousand, and would pass that cotangent.
+K8_DW_SPREAD = 4.0
+
+
+def k8_bounds(dy, values, nbr, weight, count):
+    """Where K8's dX and dW must lie, from the float64 sums of the exact
+    bf16 x float32 products, then rounded to bf16 (float32 first, as the
+    kernels) at each place the plain path rounds; rounding is monotonic,
+    so the bounds carry through.  dX: each float32 sum of n terms within
+    (n + 1) 2^-24 of the sum of its terms' magnitudes (n = 3 Cout for a
+    tap's product, three MMAs a term; 8 for the taps' sum).  dW: within
+    ``K8_DW_SPREAD`` sqrt(n) 2^-24 (sqrt(sum p^2) + |S|) of the exact sum
+    S of its n products (n = 3 occupied rows), which holds a bf16 result
+    to the one or two bf16 values next to S except where the sum cancels.
+    Table entries outside [0, C) read zero, and rows 0 and from ``count``
+    up of ``dy`` are masked.  Returns ((dx_lo, dx_hi), (dw_lo, dw_hi)),
+    float64."""
+    from temporal_latticenet_tpu_torch.ops import lattice_ops as lo
+
+    def bf16(x):
+        return x.float().to(torch.bfloat16).double()
+
+    u = 2.0 ** -24
+    rows, cout = dy.shape
+    cin = values.shape[1]
+    d = lo.mask_rows(dy, count).double()
+    w = weight.to(torch.bfloat16).double().reshape(9, cin, cout)
+    taps = []
+    for k in range(9):
+        p, m = d @ w[k].t(), d.abs() @ w[k].abs().t()
+        e = (3 * cout + 1) * u * m
+        taps.append((bf16(p - e), bf16(p + e)))
+    r = torch.arange(rows, device=dy.device)
+    lo_sum = torch.zeros(rows, cin, dtype=torch.float64, device=dy.device)
+    hi_sum, mag = torch.zeros_like(lo_sum), torch.zeros_like(lo_sum)
+    for k in range(8):
+        src = nbr.idx[:, (k + 4) % 8]
+        valid = ((src > 0) & (src < count))[:, None]
+        src = src.clamp(0, rows - 1)
+        t_lo, t_hi = taps[k][0][src], taps[k][1][src]
+        lo_sum += torch.where(valid, t_lo, 0.0)
+        hi_sum += torch.where(valid, t_hi, 0.0)
+        mag += torch.where(valid, torch.maximum(t_lo.abs(), t_hi.abs()), 0.0)
+    e = 9 * u * mag
+    dx = (bf16(bf16(lo_sum - e) + taps[8][0]),
+          bf16(bf16(hi_sum + e) + taps[8][1]))
+    del taps, lo_sum, hi_sum, mag
+    idx = torch.cat([nbr.idx[:, :8], r[:, None]], dim=1)
+    inside = (idx >= 0) & (idx < rows)
+    g = values.to(torch.bfloat16).double()[idx.clamp(0, rows - 1)]
+    g = torch.where(inside[..., None], g, 0.0).reshape(rows, 9 * cin)
+    occupied = int(((r > 0) & (r < count)).sum())
+    p = g.t() @ d
+    g.mul_(g)
+    e = (K8_DW_SPREAD * math.sqrt(3 * max(occupied, 1)) * u
+         * (g.t() @ (d * d)).sqrt_().add_(p.abs()))
+    return dx, (bf16(p - e), bf16(p + e))
+
+
+def k8_planted(dy, values, nbr, weight, count):
+    """K8's two outputs as a faulty kernel would give them, by the plain
+    version on a changed cotangent: ``hi_only`` keeps only the top bf16
+    part of its split (a bf16 cotangent), ``row_step_dropped`` leaves out
+    one 32-row step of the occupied rows.  Returns {name: (dx, dw)}."""
+    from temporal_latticenet_tpu_torch.ops import lattice_ops as lo
+
+    hi = lo.bf16_split3(dy)[0].float()
+    step = 32 * (int(count) // 64)
+    dropped = dy.clone()
+    dropped[max(step, 1):step + 32] = 0
+    out = {}
+    for name, d in (("hi_only", hi), ("row_step_dropped", dropped)):
+        out[name] = lo.lattice_conv_backward_plain(
+            d, values, nbr, weight, count, (True, True, False))[:2]
+    return out
+
+
+def outside(x, low, high):
+    """The share of ``x``'s entries outside [low, high]."""
+    x = x.double()
+    return float(((x < low) | (x > high)).double().mean())
+
+
+def check_lattice_conv_backward(dev, tables, case):
+    """K8 (K6's backward: ``lattice_conv_dx``, ``lattice_conv_dw``) on the
+    final frame's tables at the nine width pairs of the flagship step,
+    float32 values and cotangent, a bf16 weight: within ``k8_bounds``,
+    bit-equal from call to call, and the bounds reject both planted faults
+    of ``k8_planted``, whose shares outside them the tolerance reports.
+    The plain version is ``lattice_conv_backward_plain``; the library
+    call, ``torch.mm`` of its float32 product over the materialised rows.
+    Bound: 3 x 2 occupied 9 Cin Cout operations (three MMAs a product) at
+    989 TFLOP/s, or the bytes of the occupied rows read once and the
+    result written once."""
+    from temporal_latticenet_tpu_torch.ops import lattice_ops as lo
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    for lv, cin, cout in BWD_CONV_SHAPES:
+        nbr, count = tables[lv]
+        rows = nbr.idx.shape[0]
+        live = (torch.arange(rows, device=dev) > 0) \
+            & (torch.arange(rows, device=dev) < count)
+        values = torch.randn(rows, cin, generator=g, device=dev) \
+            * live[:, None]
+        weight = (torch.randn(9 * cin, cout, generator=g, device=dev)
+                  / math.sqrt(9 * cin)).to(torch.bfloat16)
+        dy = torch.randn(rows, cout, generator=g, device=dev)
+        bounds = k8_bounds(dy, values, nbr, weight, count)
+        planted = k8_planted(dy, values, nbr, weight, count)
+        d_out = lo.mask_rows(dy, count)
+        w32 = weight.float()
+        rows32 = lo.gather_rowified(values.to(torch.bfloat16), nbr).float()
+
+        def dx():
+            return lo.lattice_conv_dx(dy, nbr, weight, count, torch.float32)
+
+        def dw():
+            return lo.lattice_conv_dw(dy, values, nbr, count, torch.float32)
+
+        def plain(i):
+            needs = tuple(j == i for j in range(3))
+            return lambda: lo.lattice_conv_backward_plain(
+                dy, values, nbr, weight, count, needs)[i]
+
+        def within(i, kernel):
+            low, high = bounds[i]
+            faults = {n: outside(p[i], low, high)
+                      for n, p in planted.items()}
+
+            def compare(got, want):
+                x = got.double()
+                ok = (outside(x, low, high) == 0
+                      and torch.equal(got, kernel())
+                      and all(s > 0 for s in faults.values()))
+                return (float((x - want.double()).abs().max()), ok,
+                        "within k8_bounds; bit-equal from call to call; "
+                        "planted faults outside the bounds: "
+                        + ", ".join(f"{n} {s:.3g} of the entries"
+                                    for n, s in faults.items()))
+            return compare
+
+        occupied = int(live.sum())
+        ops = 3 * 2 * occupied * 9 * cin * cout
+        table = occupied * 8 * 8
+        label = (f"level {lv}: C={rows} count={int(count)} Cin={cin} "
+                 f"Cout={cout}")
+        case("lattice_conv_dx", label, dx, plain(0),
+             lambda: torch.mm(d_out, w32.t()),
+             occupied * cout * 4 + table + 9 * cin * cout * 2
+             + rows * cin * 4, ops, within(0, dx), BF16_OPS_PER_S)
+        case("lattice_conv_dw", label, dw, plain(1),
+             lambda: torch.mm(rows32.t(), d_out),
+             occupied * (cin + cout) * 4 + table + 9 * cin * cout * 4, ops,
+             within(1, dw), BF16_OPS_PER_S)
+        del rows32, bounds, planted
 
 
 # (level, C) of the flagship forward's GroupNorm + ReLUs: each width that
@@ -1265,8 +1453,10 @@ def hand_written(kernel_name: str):
     ``seg_sum_tails_gather``; K4 ``seg_max_lookback`` (K2, K3 and K4 share
     the look-back scan, each under a kernel name of its own); K7's forward
     its three ``masked_gn_*`` kernels, its backward the two
-    ``masked_gn_bwd_*``.  The memsets of their tile states carry no kernel
-    name and are not counted here."""
+    ``masked_gn_bwd_*``; K8 (K6's backward) ``lattice_conv_dx_kernel`` and
+    ``lattice_conv_dw_kernel`` with ``lattice_conv_dw_sum_kernel``.  The
+    memsets of their tile states carry no kernel name and are not counted
+    here."""
     if "simplex_kernel" in kernel_name:
         return "fused_simplex_pack"
     if "seg_max_window_kernel" in kernel_name:
@@ -1277,6 +1467,10 @@ def hand_written(kernel_name: str):
         return "sorted_segment_scan"
     if "seg_max_lookback" in kernel_name:
         return "sorted_segment_max_u32"
+    if "lattice_conv_dx_" in kernel_name:
+        return "lattice_conv_dx"
+    if "lattice_conv_dw_" in kernel_name:
+        return "lattice_conv_dw"
     if "lattice_conv_kernel" in kernel_name:
         return "lattice_conv"
     if "masked_gn_bwd_" in kernel_name:
@@ -1456,9 +1650,9 @@ def packed_forward(dev, data, model, fwd, rt):
             torch.cuda.synchronize()
             launches = _cuda.launch_counts()
     check_output(logp_k5, aux, rt, mask[-1])
-    # a forward launches every kernel but K7's backward
+    # a forward launches every kernel but the backwards
     missing = [k for k, v in launches.items()
-               if v == 0 and k != "masked_gn_relu_backward"]
+               if v == 0 and k not in BACKWARD_KERNELS]
     if missing:
         raise AssertionError(f"kernels not launched on the packed route: "
                              f"{missing}")
@@ -1567,6 +1761,13 @@ def train_flagship(dev, forward_launches):
     if missing:
         raise AssertionError(f"kernels not launched in the training step: "
                              f"{missing}")
+    # one K8 dX and dW a bf16 convolution: as many as a forward's K6
+    convs = forward_launches.get("lattice_conv", 0)
+    k8 = {k: (launches[k], replayed[k])
+          for k in ("lattice_conv_dx", "lattice_conv_dw")}
+    if any(v != (convs, convs) for v in k8.values()):
+        raise AssertionError(f"K8 (eager, replayed by name) {k8} a step, "
+                             f"for {convs} lattice convolutions")
     if not launches["sorted_segment_scan"] > forward_launches.get(
             "sorted_segment_scan", 0):
         raise AssertionError("K2 launched no more often in the training step "

@@ -47,6 +47,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -61,73 +62,6 @@ constexpr int kTaps = 9;
 // distinct banks), bf16 rows of 80 (ldmatrix conflict-free); both 16-byte
 // multiples for cp.async.
 constexpr int kAStride = kBK + 8;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled past `bytes` (0 reads nothing)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One 16-byte chunk of elements of type T from src, of which the first n
-// exist, into dst: by cp.async (vec: 16-byte aligned, n >= the chunk's
-// elements or <= 0; src is then still a valid address) or element by
-// element.
-template <typename T>
-__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int n,
-                                           bool vec) {
-  constexpr int kElems = 16 / sizeof(T);
-  if (vec) {
-    cp_async16(dst, src, n > 0 ? 16 : 0);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < kElems; ++e) dst[e] = e < n ? src[e] : T(0.f);
-}
 
 // A fragment (16 rows x 16 depth) of a float32 stage, rounded to bf16
 __device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const float* s,
@@ -339,21 +273,9 @@ int launch(const void* values, const void* idx, int64_t idx_stride,
            int64_t count_imm, void* out, int rows, int cin, int cout,
            int vec_a, int vec_b, cudaStream_t stream) {
   constexpr int kBytes = static_cast<int>(sizeof(Smem<TIn, BN>));
-  // above 48 KB a block's dynamic shared memory needs the attribute (a
-  // host-side setting of the current device, not a stream operation): set
-  // once for each device this instance launches on
   static std::atomic<uint64_t> set_on{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!bit || !(set_on.load(std::memory_order_acquire) & bit)) {
-    e = cudaFuncSetAttribute(lattice_conv_kernel<TIn, BN>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kBytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    set_on.fetch_or(bit, std::memory_order_release);
-  }
+  const int e = allow_smem(lattice_conv_kernel<TIn, BN>, kBytes, set_on);
+  if (e != 0) return e;
   const dim3 grid((cout + BN - 1) / BN, (rows + kBM - 1) / kBM);
   lattice_conv_kernel<TIn, BN><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const TIn*>(values), static_cast<const int64_t*>(idx),

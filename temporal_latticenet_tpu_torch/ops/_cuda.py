@@ -17,6 +17,7 @@ and is not counted either (a profiler trace names the replayed kernels).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,6 +40,7 @@ SOURCES = {
     "seg_max": ("seg_max.cu", ()),
     "seg_max_window": ("seg_max_window.cu", ()),
     "lattice_conv": ("lattice_conv.cu", ()),
+    "lattice_conv_bwd": ("lattice_conv_bwd.cu", ()),
     "masked_gn": ("masked_gn.cu", ()),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,7 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"fused_simplex_pack": 0, "sorted_segment_scan": 0,
             "seg_sum_tails": 0, "sorted_segment_max_u32": 0,
             "sorted_segment_max_window": 0, "lattice_conv": 0,
-            "masked_gn_relu": 0, "masked_gn_relu_backward": 0}
+            "masked_gn_relu": 0, "masked_gn_relu_backward": 0,
+            "lattice_conv_dx": 0, "lattice_conv_dw": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -152,6 +155,12 @@ def check(lib_name: str, err: int, what: str) -> None:
 
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a card, which grids are sized by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 P = ctypes.c_void_p

@@ -509,8 +509,9 @@ def lattice_conv(values: torch.Tensor, nbr: NeighborTable,
     """One-hop lattice convolution: gather -> (C, 9*Cin) @ (9*Cin, Cout).
 
     On CUDA in bf16 it is one launch of kernel K6 (:class:`_LatticeConvBf16`),
-    which never writes the rows to device memory; elsewhere the rows are
-    gathered, concatenated and multiplied by :func:`matmul_f32`."""
+    whose backward is kernel K8, and neither writes the rows to device
+    memory; elsewhere the rows are gathered, concatenated and multiplied by
+    :func:`matmul_f32`."""
     if values.is_cuda and compute_dtype == torch.bfloat16:
         return _LatticeConvBf16.apply(values.contiguous(), weight, bias,
                                       nbr, count)
@@ -552,6 +553,18 @@ def _tile_width(cout: int) -> int:
 
 
 _K6_MAX_ROWS = 65535 * 128   # the grid's row tiles
+
+
+def _count_arg(count, tensors: list):
+    """``count`` as K6-K8's kernels take it: a () int64 on the device
+    (appended to ``tensors`` for the device check), or an int."""
+    if torch.is_tensor(count):
+        if count.numel() != 1 or count.dtype.is_floating_point:
+            raise ValueError("count must be one integer")
+        count = count.reshape(()).to(torch.int64)
+        tensors.append(count)
+        return count.data_ptr(), 0
+    return None, int(count)
 
 
 def lattice_conv_gemm(values: torch.Tensor, nbr: NeighborTable,
@@ -596,11 +609,7 @@ def lattice_conv_gemm(values: torch.Tensor, nbr: NeighborTable,
     if rows > _K6_MAX_ROWS:
         raise ValueError(f"K6 takes at most {_K6_MAX_ROWS} rows, got {rows}")
     tensors = [values, idx, weight] + ([bias] if bias is not None else [])
-    if torch.is_tensor(count):
-        if count.numel() != 1 or count.dtype.is_floating_point:
-            raise ValueError("count must be one integer")
-        count = count.reshape(()).to(torch.int64)
-        tensors.append(count)
+    count_ptr, count_imm = _count_arg(count, tensors)
     if any(t.device != values.device for t in tensors):
         raise ValueError("K6's tensors must be on one device")
     if not (values.is_contiguous() and weight.is_contiguous()
@@ -612,7 +621,6 @@ def lattice_conv_gemm(values: torch.Tensor, nbr: NeighborTable,
     vec_a = (cin % (16 // values.element_size()) == 0
              and values.data_ptr() % 16 == 0)
     vec_b = cout % 8 == 0 and weight.data_ptr() % 16 == 0
-    counted = torch.is_tensor(count)
     fn = _cuda.function("lattice_conv", "tln_lattice_conv",
                         [_cuda.P, _cuda.I32, _cuda.P, _cuda.I64, _cuda.P,
                          _cuda.P, _cuda.P, _cuda.I64, _cuda.P, _cuda.I32,
@@ -621,29 +629,244 @@ def lattice_conv_gemm(values: torch.Tensor, nbr: NeighborTable,
     err = fn(values.data_ptr(), int(values.dtype == torch.bfloat16),
              idx.data_ptr(), idx.stride(0), weight.data_ptr(),
              bias.data_ptr() if bias is not None else None,
-             count.data_ptr() if counted else None,
-             0 if counted else int(count), out.data_ptr(), rows, cin, cout,
+             count_ptr, count_imm, out.data_ptr(), rows, cin, cout,
              _tile_width(cout), int(vec_a), int(vec_b), _cuda.stream_ptr())
     _cuda.check("lattice_conv", err, "lattice_conv_gemm")
     _cuda.count_launch("lattice_conv")
     return out
 
 
+def lattice_conv_backward_plain(dy: torch.Tensor, values: torch.Tensor,
+                                nbr: NeighborTable, weight: torch.Tensor,
+                                count, needs=(True, True, True)):
+    """The gradients of :func:`lattice_conv_gemm_plain` for values, weight
+    and bias (each None where ``needs`` says so), by the operations of the
+    plain path under autograd: ``dY = mask_rows(dy)``, the rows gathered
+    again and upcast, ``dW = rows^T @ dY`` and ``dRows = dY @ W^T`` in
+    float32 (bf16-exact operands, the float32 cotangent), each rounded to
+    bf16 as the upcasts' backwards round them, then the 8 taps' adjoint
+    through :meth:`_Gather8Sym.backward` plus the center tap.  The weight's
+    gradient comes back in the weight's dtype, the values' in theirs, the
+    bias's in float32."""
+    d_out = mask_rows(dy, count)
+    cap, cin = values.shape
+    d_values = d_weight = d_bias = None
+    if needs[1]:
+        rows = gather_rowified(values.to(torch.bfloat16), nbr)
+        d_weight = rows.to(torch.float32).t().mm(d_out).to(
+            torch.bfloat16).to(weight.dtype)
+    if needs[0]:
+        w = weight.to(torch.bfloat16).to(torch.float32)
+        d_rows = d_out.mm(w.t()).to(torch.bfloat16).reshape(cap, 9, cin)
+        # the gather's own backward, with the table it would save
+        taps = types.SimpleNamespace(saved_tensors=(nbr.idx[:, :8],))
+        d_taps, _ = _Gather8Sym.backward(taps, d_rows[:, :8])
+        d_values = (d_taps + d_rows[:, 8]).to(values.dtype)
+    if needs[2]:
+        d_bias = d_out.sum(0)
+    return d_values, d_weight, d_bias
+
+
+def bf16_split3(x: torch.Tensor):
+    """Kernel K8's exact split of float32 ``x`` into three bf16 parts:
+    ``hi`` is the top 16 bits of ``x`` (a bf16), ``mid`` the top 16 bits of
+    ``x - hi``, ``lo = x - hi - mid``.  Each difference is exact in float32
+    and ``lo`` keeps at most 8 significant bits, so ``hi + mid + lo == x``
+    for every finite ``x`` of magnitude at least 2**-110 (or a multiple of
+    2**-133, bf16's subnormal step).  Truncation, not rounding, so no part
+    overflows at float32's largest magnitudes."""
+    def top(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = top(x)
+    rest = x - hi
+    mid = top(rest)
+    return (hi.to(torch.bfloat16), mid.to(torch.bfloat16),
+            (rest - mid).to(torch.bfloat16))
+
+
+def _dx_tile_width(cin: int) -> int:
+    """K8's dX columns (of Cin) a block."""
+    return 32 if cin <= 32 else 64
+
+
+def _dw_chunks(rows: int, cin: int, cout: int, sms: int):
+    """K8's dW split of the ``rows`` over chunks of whole 32-row steps:
+    enough (row chunk, output tile) blocks for about two waves of two
+    blocks on each of the card's ``sms`` SMs, at least 256 rows a chunk,
+    and partials that take at most half the bytes of the (C, 9 Cin) bf16
+    rows they stand in for.  Returns (rows a chunk, chunks)."""
+    tiles = -(-9 * cin // 128) * -(-cout // _tile_width(cout))
+    chunks = max(1, min(-(-4 * sms // tiles), rows // 256,
+                        rows // (4 * cout)))
+    chunk_rows = max(32, -(-rows // (chunks * 32)) * 32)
+    return chunk_rows, -(-rows // chunk_rows)
+
+
+def _check_cotangent(dy, nbr):
+    """(rows, Cout, the table) of K8's cotangent ``dy`` and table ``nbr``,
+    or a ValueError where the kernels do not take them."""
+    if dy.dim() != 2 or dy.dtype != torch.float32 or not dy.is_contiguous():
+        raise ValueError(f"dy must be (C, Cout) float32 contiguous, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    rows, cout = dy.shape
+    idx = nbr.idx
+    if (idx.dim() != 2 or idx.shape[0] != rows or idx.shape[1] < 8
+            or idx.dtype != torch.int64 or idx.stride(1) != 1):
+        raise ValueError(f"nbr.idx must be ({rows}, >= 8) int64 with "
+                         f"contiguous rows, got {tuple(idx.shape)} "
+                         f"{idx.dtype}")
+    if rows > _K6_MAX_ROWS:
+        raise ValueError(f"K8 takes at most {_K6_MAX_ROWS} rows, got {rows}")
+    return rows, cout, idx
+
+
+def _check_card(tensors: list) -> None:
+    dev = tensors[0].device
+    if not tensors[0].is_cuda or any(t.device != dev for t in tensors):
+        raise ValueError(f"K8 takes CUDA tensors on one device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+
+
+def lattice_conv_dx(dy: torch.Tensor, nbr: NeighborTable,
+                    weight: torch.Tensor, count,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The values' gradient of :func:`lattice_conv_backward_plain` as one
+    launch of kernel K8's dX (``csrc/lattice_conv_bwd.cu``).
+
+    Args:
+      dy: (C, Cout) float32 contiguous cotangent (rows 0 and from ``count``
+        up are read as zero).
+      nbr: its ``idx``, (C, >= 8) int64 with a contiguous last dimension.
+      weight: (9*Cin, Cout) bf16 contiguous.
+      count: () integer tensor on the card, or an int.
+      dtype: the values' dtype, float32 or bf16.
+    Returns (C, Cin) in ``dtype``, bf16-valued."""
+    rows, cout, idx = _check_cotangent(dy, nbr)
+    if (weight.dim() != 2 or weight.shape[1] != cout
+            or weight.shape[0] % 9 != 0 or weight.dtype != torch.bfloat16
+            or not weight.is_contiguous()):
+        raise ValueError(f"weight must be (9 Cin, {cout}) bf16 contiguous, "
+                         f"got {tuple(weight.shape)} {weight.dtype}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dX must be float32 or bf16, got {dtype}")
+    cin = weight.shape[0] // 9
+    tensors = [dy, idx, weight]
+    count_ptr, count_imm = _count_arg(count, tensors)
+    _check_card(tensors)
+    out = torch.empty((rows, cin), dtype=dtype, device=dy.device)
+    vec_a = cout % 4 == 0 and dy.data_ptr() % 16 == 0
+    vec_b = cout % 8 == 0 and weight.data_ptr() % 16 == 0
+    fn = _cuda.function("lattice_conv_bwd", "tln_lattice_conv_dx",
+                        [_cuda.P, _cuda.P, _cuda.I64, _cuda.P, _cuda.P,
+                         _cuda.I64, _cuda.P, _cuda.I32, _cuda.I32,
+                         _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
+                         _cuda.I32, _cuda.P])
+    err = fn(dy.data_ptr(), idx.data_ptr(), idx.stride(0), weight.data_ptr(),
+             count_ptr, count_imm, out.data_ptr(),
+             int(dtype == torch.bfloat16), rows, cin, cout,
+             _dx_tile_width(cin), int(vec_a), int(vec_b), _cuda.stream_ptr())
+    _cuda.check("lattice_conv_bwd", err, "lattice_conv_dx")
+    _cuda.count_launch("lattice_conv_dx")
+    return out
+
+
+def lattice_conv_dw(dy: torch.Tensor, values: torch.Tensor,
+                    nbr: NeighborTable, count,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The weight's gradient of :func:`lattice_conv_backward_plain` as
+    kernel K8's dW (``csrc/lattice_conv_bwd.cu``): a split-K product over
+    chunks of the rows (:func:`_dw_chunks`) and the sum of their partials,
+    two launches.
+
+    Args:
+      dy: (C, Cout) float32 contiguous cotangent (rows 0 and from ``count``
+        up are read as zero).
+      values: (C, Cin) float32 or bf16, contiguous (rounded to bf16 in the
+        kernel).
+      nbr: as :func:`lattice_conv_dx`'s; entries outside [0, C) read zero.
+      count: () integer tensor on the card, or an int.
+      dtype: the weight's dtype, float32 or bf16.
+    Returns (9*Cin, Cout) in ``dtype``, bf16-valued."""
+    rows, cout, idx = _check_cotangent(dy, nbr)
+    if (values.dim() != 2 or values.shape[0] != rows
+            or values.dtype not in (torch.float32, torch.bfloat16)
+            or not values.is_contiguous()):
+        raise ValueError(f"values must be ({rows}, Cin) float32 or bf16 "
+                         f"contiguous, got {tuple(values.shape)} "
+                         f"{values.dtype}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dW must be float32 or bf16, got {dtype}")
+    cin = values.shape[1]
+    tensors = [dy, idx, values]
+    count_ptr, count_imm = _count_arg(count, tensors)
+    _check_card(tensors)
+    chunk_rows, chunks = _dw_chunks(rows, cin, cout,
+                                    _cuda.sm_count(dy.device))
+    partial = torch.empty((chunks, 9 * cin, cout), dtype=torch.float32,
+                          device=dy.device)
+    out = torch.empty((9 * cin, cout), dtype=dtype, device=dy.device)
+    vec_a = (cin % (16 // values.element_size()) == 0
+             and values.data_ptr() % 16 == 0)
+    vec_b = cout % 4 == 0 and dy.data_ptr() % 16 == 0
+    fn = _cuda.function("lattice_conv_bwd", "tln_lattice_conv_dw",
+                        [_cuda.P, _cuda.I32, _cuda.P, _cuda.I64, _cuda.P,
+                         _cuda.P, _cuda.I64, _cuda.P, _cuda.P, _cuda.I32,
+                         _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
+                         _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
+                         _cuda.P])
+    err = fn(values.data_ptr(), int(values.dtype == torch.bfloat16),
+             idx.data_ptr(), idx.stride(0), dy.data_ptr(), count_ptr,
+             count_imm, partial.data_ptr(), out.data_ptr(),
+             int(dtype == torch.bfloat16), rows, cin, cout,
+             _tile_width(cout), chunk_rows, chunks, int(vec_a), int(vec_b),
+             _cuda.stream_ptr())
+    _cuda.check("lattice_conv_bwd", err, "lattice_conv_dw")
+    _cuda.count_launch("lattice_conv_dw")
+    return out
+
+
+def lattice_conv_backward(dy: torch.Tensor, values: torch.Tensor,
+                          nbr: NeighborTable, weight: torch.Tensor, count,
+                          needs, weight_dtype: torch.dtype):
+    """The gradients of :func:`lattice_conv_backward_plain`, the weight's
+    in ``weight_dtype``: the plain version for CPU tensors; on the card the
+    values' and the weight's from kernel K8 (:func:`lattice_conv_dx`,
+    :func:`lattice_conv_dw`) and the bias's the masked cotangent's column
+    sum.  ``weight`` is the bf16 weight."""
+    if dy.device.type == "cpu":
+        d_values, d_weight, d_bias = lattice_conv_backward_plain(
+            dy, values, nbr, weight, count, needs)
+        if d_weight is not None:
+            d_weight = d_weight.to(weight_dtype)
+        return d_values, d_weight, d_bias
+    dy = dy.contiguous()
+    d_values = d_weight = d_bias = None
+    if needs[0]:
+        d_values = lattice_conv_dx(dy, nbr, weight, count, values.dtype)
+    if needs[1]:
+        d_weight = lattice_conv_dw(dy, values, nbr, count, weight_dtype)
+    if needs[2]:
+        d_bias = mask_rows(dy, count).sum(0)
+    return d_values, d_weight, d_bias
+
+
 class _LatticeConvBf16(torch.autograd.Function):
     """The bf16 lattice convolution as kernel K6 (:func:`lattice_conv_gemm`;
-    its plain version on the CPU).  It saves the values, the weight and the
-    table, never the rows.  The backward gives the gradients of the plain
-    path (:func:`gather_rowified`, :func:`matmul_f32`, the bias add and
-    :func:`mask_rows` under autograd) with the same operations: the rows
-    gathered again and upcast, ``dW = rows^T @ dY`` and ``dRows = dY @ W^T``
-    in float32 (bf16-exact operands, the float32 cotangent), each rounded to
-    bf16 as the upcasts' backwards round them, then the 8 taps' adjoint
-    through :meth:`_Gather8Sym.backward` plus the center tap."""
+    its plain version on the CPU).  It saves the values, the bf16 weight
+    and the table, never the rows.  The backward gives the gradients of the
+    plain path (:func:`gather_rowified`, :func:`matmul_f32`, the bias add
+    and :func:`mask_rows` under autograd): :func:`lattice_conv_backward`,
+    kernel K8 on the card and the same operations as the plain path on the
+    CPU (:func:`lattice_conv_backward_plain`)."""
 
     @staticmethod
     def forward(ctx, values, weight, bias, nbr, count):
         counted = torch.is_tensor(count)
         ctx.count = None if counted else count
+        ctx.weight_dtype = weight.dtype
+        weight = weight.to(torch.bfloat16)
         ctx.save_for_backward(values, weight, nbr.idx, nbr.found,
                               count if counted else None)
         return lattice_conv_gemm(values, nbr, weight, bias, count)
@@ -654,24 +877,9 @@ class _LatticeConvBf16(torch.autograd.Function):
             values, weight, idx, found, count = ctx.saved_tensors
             if count is None:
                 count = ctx.count
-            d_out = mask_rows(dy, count)
-            cap, cin = values.shape
-            d_values = d_weight = d_bias = None
-            if ctx.needs_input_grad[1]:
-                rows = gather_rowified(values.to(torch.bfloat16),
-                                       NeighborTable(idx, found))
-                d_weight = rows.to(torch.float32).t().mm(d_out).to(
-                    torch.bfloat16).to(weight.dtype)
-            if ctx.needs_input_grad[0]:
-                w = weight.to(torch.bfloat16).to(torch.float32)
-                d_rows = d_out.mm(w.t()).to(torch.bfloat16).reshape(
-                    cap, 9, cin)
-                # the gather's own backward, with the table it would save
-                taps = types.SimpleNamespace(saved_tensors=(idx[:, :8],))
-                d_taps, _ = _Gather8Sym.backward(taps, d_rows[:, :8])
-                d_values = (d_taps + d_rows[:, 8]).to(values.dtype)
-            if ctx.needs_input_grad[2]:
-                d_bias = d_out.sum(0)
+            d_values, d_weight, d_bias = lattice_conv_backward(
+                dy, values, NeighborTable(idx, found), weight, count,
+                ctx.needs_input_grad[:3], ctx.weight_dtype)
             return d_values, d_weight, d_bias, None, None
 
 

@@ -500,6 +500,15 @@ def test_cuda_kernels_match_plain(cuda_device):
     ("void (anonymous namespace)::masked_gn_bwd_dx_kernel<4>(float const*, "
      "float const*, long const*, long, (anonymous namespace)::Layout, ...)",
      "masked_gn_relu_backward"),
+    ("void (anonymous namespace)::lattice_conv_dx_kernel<float, 64>(float "
+     "const*, long const*, long, __nv_bfloat16 const*, long const*, long, "
+     "float*, int, int, int, int, int)", "lattice_conv_dx"),
+    ("void (anonymous namespace)::lattice_conv_dw_kernel<float, 128>(float "
+     "const*, long const*, long, float const*, long const*, long, float*, "
+     "int, int, int, int, int, int)", "lattice_conv_dw"),
+    ("void (anonymous namespace)::lattice_conv_dw_sum_kernel<float>(float "
+     "const*, long const*, long, float*, long, int, int, int)",
+     "lattice_conv_dw"),
     ("Memset (Device)", None),
     ("void at::native::vectorized_elementwise_kernel<4, "
      "at::native::CUDAFunctor_add<float>>(int, ...)", None),
@@ -528,6 +537,23 @@ def test_chip_smoke_counts_a_call_by_its_first_kernel():
     assert got["masked_gn_relu_backward"] == 1
     assert got["seg_sum_tails"] == 1
     assert got["lattice_conv"] == 0
+
+
+def test_chip_smoke_counts_k8_apart_from_k6():
+    """K8's dX is one kernel a call, its dW two (counted by the first);
+    neither is counted as K6."""
+    names = ["void (anonymous namespace)::lattice_conv_kernel<float, 64>(x)",
+             "void (anonymous namespace)::lattice_conv_dx_kernel<float, 64>"
+             "(x)",
+             "void (anonymous namespace)::lattice_conv_dw_kernel<float, 128>"
+             "(x)",
+             "void (anonymous namespace)::lattice_conv_dw_sum_kernel<float>"
+             "(x)"] * 3
+    events = [types.SimpleNamespace(name=n) for n in names]
+    got = chip_smoke.traced_launches(events, 3)
+    assert got["lattice_conv"] == 1
+    assert got["lattice_conv_dx"] == 1
+    assert got["lattice_conv_dw"] == 1
 
 
 def test_cpu_path_does_not_count_launches():
